@@ -1,0 +1,390 @@
+#!/usr/bin/env python3
+"""Run the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure is an uncaught exception and a nonzero exit):
+
+1. Environment: torch and CUDA versions, the card's name and power limit.
+   Without a CUDA device the script exits 1 before printing any result.
+2. Build: the three hand-written kernels (video_stab_tpu_torch/csrc/) are
+   compiled from the checkout's sources into build/torch_kernels/.
+3. Kernels against their plain PyTorch versions on the card, at the shapes
+   the main path gives them, with the tolerances of the CPU parity tests;
+   kernel and plain times from CUDA events (median of 25 after warm-up).
+4. The slice: ``ProcessingChain`` with exactly the ``__graft_entry__.entry()``
+   parameters at 1920x1080 over 64 frames of textured content with a ~2 deg
+   tilted horizon and per-frame jitter, then ``flush()``. The kernels'
+   launch counters are zeroed just before and read just after; each must be
+   > 0. Output frames, the roll angle and the queue drain are checked.
+5. Steady-state ms/frame of the chain and of the bare ``Stabilizer`` at
+   1080p (CUDA events), and the CUDA chain against the CPU (plain) chain on
+   a small input.
+
+The line before last is the card's ``nvidia-smi`` name and power limit; the
+last line is ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+N_FRAMES = 64
+TIMED_FRAMES = 60
+SEED = 0
+
+
+def nvidia_smi() -> str:
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return proc.stdout.strip().splitlines()[0]
+
+
+def make_frames(h: int, w: int, n: int, seed: int = SEED) -> np.ndarray:
+    """(n, h, w, 3) u8: a smooth random world seen through a jittering
+    window (bench.py's _make_pool), with a ~2 deg tilted horizon edge
+    composited in so the roll stage engages."""
+    rng = np.random.default_rng(seed)
+    pad = 32
+    world = rng.random((h + 2 * pad, w + 2 * pad)).astype(np.float32)
+    kern = np.exp(-0.5 * (np.arange(-6, 7) / 2.0) ** 2).astype(np.float32)
+    kern /= kern.sum()
+    world = np.apply_along_axis(
+        lambda r: np.convolve(r, kern, mode="same"), 1, world)
+    world = np.apply_along_axis(
+        lambda c: np.convolve(c, kern, mode="same"), 0, world)
+    world -= world.min()
+    world /= max(world.max(), 1e-6)
+    world = (world * 255.0).astype(np.uint8)
+    yy = np.arange(h, dtype=np.float32)[:, None]
+    xx = np.arange(w, dtype=np.float32)[None, :]
+    sky = (yy < (h / 2.0 + np.tan(np.radians(2.0)) * (xx - w / 2.0)))
+    sky = (sky * 60.0).astype(np.float32)[:, :, None]
+    frames = np.empty((n, h, w, 3), np.uint8)
+    for i in range(n):
+        dx, dy = rng.integers(-8, 9, 2)
+        f = world[pad + dy:pad + dy + h, pad + dx:pad + dx + w]
+        bgr = np.stack([f, np.roll(f, 1, 0), 255 - f], axis=-1)
+        frames[i] = np.clip(bgr * 0.75 + sky, 0, 255).astype(np.uint8)
+    return frames
+
+
+def time_ms(fn, torch, warmup: int = 5, reps: int = 25) -> float:
+    """Median ms of fn() on the current stream, CUDA events per call."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def check_kernels(torch, dev) -> dict:
+    """Phase 3: each kernel against its plain version at the path's shapes."""
+    from video_stab_tpu_torch.core.params import EnhancerParams
+    from video_stab_tpu_torch.kernels import enhance as kenh
+    from video_stab_tpu_torch.kernels import features as kfeat
+    from video_stab_tpu_torch.kernels import warp as kwarp
+    from video_stab_tpu_torch.ops.warp import (BORDER_CONSTANT,
+                                               BORDER_REPLICATE,
+                                               affine_coords, invert_affine,
+                                               rotation_matrix_2d,
+                                               sample_bilinear)
+
+    results = {}
+    frame = torch.from_numpy(make_frames(1080, 1920, 1, seed=1)[0]).to(dev)
+
+    def rigid(ang_deg, tx, ty):
+        a = np.radians(ang_deg)
+        return torch.tensor([[np.cos(a), -np.sin(a), tx],
+                             [np.sin(a), np.cos(a), ty]],
+                            dtype=torch.float32).to(dev)
+
+    def row3(m):
+        return torch.cat([m, torch.tensor([[0.0, 0.0, 1.0]]).to(dev)])
+
+    roll = rotation_matrix_2d(960.0, 540.0,
+                              torch.tensor(2.0).to(dev))
+    gray = frame.float().mean(dim=2)
+    gray540 = torch.nn.functional.interpolate(
+        gray[None, None], size=(540, 960), mode="bilinear",
+        align_corners=False)[0, 0].contiguous()
+    gray540_u8 = torch.clamp(torch.round(gray540), 0, 255).to(
+        torch.uint8).contiguous()
+    a_roll = rotation_matrix_2d(480.0, 270.0, torch.tensor(2.0).to(dev))
+    warp_cases = [
+        ("emit 1080x1920x3 constant", frame,
+         rigid(0.3, 3.2, -1.7), BORDER_CONSTANT),
+        ("emit+2deg roll 1080x1920x3 constant", frame,
+         (row3(rigid(0.3, 3.2, -1.7)) @ row3(roll))[:2], BORDER_CONSTANT),
+        ("analysis gray 540x960x1 replicate", gray540_u8[:, :, None]
+         .contiguous(), a_roll, BORDER_REPLICATE),
+    ]
+    err_k1 = 0
+    for name, img, m, mode in warp_cases:
+        h, w = img.shape[:2]
+        minv = invert_affine(m).reshape(6).contiguous()
+        got = kwarp.warp_affine_u8_cuda(img, minv, h, w, mode)
+        want = kwarp.warp_affine_u8_plain(img, minv, h, w, mode)
+        torch.cuda.synchronize()
+        d = (got.int() - want.int()).abs()
+        sx, sy = affine_coords(minv.reshape(2, 3), h, w)
+        v = sample_bilinear(img, sx, sy, mode)
+        ties = (v - torch.floor(v) - 0.5).abs() < 1e-3
+        bad = int(((d > 0) & ~ties.reshape(d.shape)).sum())
+        err = int(d.max())
+        print(f"K1 {name}: max|kernel-plain| {err}, "
+              f"{int((d > 0).sum())} differing px, {bad} away from a .5 tie")
+        assert err <= 1 and bad == 0, name
+        err_k1 = max(err_k1, err)
+        ms = time_ms(lambda: kwarp.warp_affine_u8_cuda(img, minv, h, w, mode),
+                     torch)
+        plain_ms = time_ms(lambda: kwarp.warp_affine_u8_plain(img, minv, h, w,
+                                                              mode), torch)
+        print(f"K1 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if name.startswith("emit+"):
+            results["warp_affine_u8"] = dict(ms=ms, plain_ms=plain_ms)
+    results["warp_affine_u8"]["max_abs_err"] = float(err_k1)
+
+    resp, peak = kfeat.corner_response_cuda(gray540)
+    p_resp, p_peak = kfeat.corner_response_plain(gray540)
+    torch.cuda.synchronize()
+    err_k3 = float((resp - p_resp).abs().max())
+    n_peak = int((peak != p_peak).sum())
+    print(f"K3 corner_response 540x960: max|resp diff| {err_k3:.3e}, "
+          f"{n_peak} peak-mask differences")
+    assert err_k3 <= 1e-5 and n_peak == 0
+    ms = time_ms(lambda: kfeat.corner_response_cuda(gray540), torch)
+    plain_ms = time_ms(lambda: kfeat.corner_response_plain(gray540), torch)
+    print(f"K3 corner_response 540x960: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms")
+    results["corner_response"] = dict(ms=ms, plain_ms=plain_ms,
+                                      max_abs_err=err_k3)
+
+    ep = EnhancerParams(brightness=5.0, contrast=1.1, gamma=0.9)
+    out, g = kenh.enhance_u8_cuda(ep, frame, None, want_gray=True)
+    p_out, p_g = kenh.enhance_u8_plain(ep, frame, None, want_gray=True)
+    torch.cuda.synchronize()
+    d = (out.int() - p_out.int()).abs()
+    same = float((d == 0).float().mean())
+    err_g = float((g - p_g).abs().max())
+    print(f"K4 enhance_u8 1080x1920x3: max|u8 diff| {int(d.max())}, "
+          f"{same * 100:.4f}% identical, max|gray diff| {err_g:.3e}")
+    assert int(d.max()) <= 1 and same >= 0.999 and err_g <= 1e-3
+    ms = time_ms(lambda: kenh.enhance_u8_cuda(ep, frame, None, True), torch)
+    plain_ms = time_ms(lambda: kenh.enhance_u8_plain(ep, frame, None, True),
+                       torch)
+    print(f"K4 enhance_u8 1080x1920x3: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms")
+    results["enhance_u8"] = dict(ms=ms, plain_ms=plain_ms,
+                                 max_abs_err=float(d.max()))
+    return results
+
+
+def entry_params():
+    from video_stab_tpu_torch.core.params import (EnhancerParams, ModeParams,
+                                                  RollCorrectionParams,
+                                                  StabilizerParams)
+    return dict(
+        mode=ModeParams(enhancer_enabled=True, roll_correction_enabled=True,
+                        stabilizer_enabled=True),
+        enhancer=EnhancerParams(brightness=5.0, contrast=1.1, gamma=0.9),
+        roll=RollCorrectionParams(),
+        stabilizer=StabilizerParams(smoothing_radius=15))
+
+
+def run_slice(torch, dev, pool) -> dict:
+    """Phase 4: the entry() chain at 1080p, counters zeroed around it."""
+    from video_stab_tpu_torch.core.chain import ProcessingChain
+    from video_stab_tpu_torch.kernels import enhance as kenh
+    from video_stab_tpu_torch.kernels import features as kfeat
+    from video_stab_tpu_torch.kernels import warp as kwarp
+    from video_stab_tpu_torch.ops import features as tfeat
+
+    chain = ProcessingChain(**entry_params())
+    radius = chain.params.stabilizer.effective_radius
+    kmods = {"warp_affine_u8": kwarp, "corner_response": kfeat,
+             "enhance_u8": kenh}
+    for mod in kmods.values():
+        mod.LAUNCHES = 0
+    syncs0 = tfeat.NMS_SYNCS
+    outs = []
+    for i in range(N_FRAMES):
+        out = chain.process_device(pool[i])
+        if out is not None:
+            outs.append((i, out))
+    torch.cuda.synchronize()
+    launches = {name: mod.LAUNCHES for name, mod in kmods.items()}
+    nms_syncs = tfeat.NMS_SYNCS - syncs0
+    print(f"slice: launches during the main path {launches}")
+    print(f"slice: NMS host reads {nms_syncs} over {N_FRAMES} frames "
+          f"({N_FRAMES // 2 + 1} GFTT runs)")
+    assert all(n > 0 for n in launches.values()), launches
+
+    assert outs and outs[0][0] == radius - 1, [i for i, _ in outs[:3]]
+    assert len(outs) == N_FRAMES - radius + 1, len(outs)
+    for _, out in outs:
+        assert out.shape == (1080, 1920, 3) and out.dtype == torch.uint8
+    angle = float(chain.state.roll.smoothed_angle)
+    print(f"slice: smoothed roll angle after {N_FRAMES} frames {angle:.6f} deg")
+    assert np.isfinite(angle) and abs(angle) > 0.1, angle
+    last = outs[-1][1].float()
+    print(f"slice: last emitted frame mean {float(last.mean()):.3f}, "
+          f"std {float(last.std()):.3f}")
+    assert float(last.std()) > 5.0
+    flushed = 0
+    while True:
+        f = chain.flush()
+        if f is None:
+            break
+        assert f.shape == (1080, 1920, 3) and f.dtype == np.uint8
+        flushed += 1
+    assert flushed == N_FRAMES - len(outs), (flushed, len(outs))
+    print(f"slice: {len(outs)} frames emitted in stream, {flushed} by flush()")
+    return launches
+
+
+def steady_state(torch, dev, pool) -> None:
+    """Phase 5a: ms/frame of the chain and of the bare stabilizer."""
+    from video_stab_tpu_torch.core.chain import ProcessingChain
+    from video_stab_tpu_torch.core.params import ModeParams, StabilizerParams
+    from video_stab_tpu_torch.core.stabilizer import Stabilizer
+
+    def timed(step, label):
+        for i in range(N_FRAMES):            # warm-up: fill the queue
+            step(pool[i % len(pool)])
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        for i in range(TIMED_FRAMES):
+            out = step(pool[i % len(pool)])
+            assert out is not None
+        end.record()
+        end.synchronize()
+        host_s = time.perf_counter() - t0
+        ms = start.elapsed_time(end) / TIMED_FRAMES
+        print(f"{label} 1080p: {ms:.3f} ms/frame ({1000.0 / ms:.2f} fps) "
+              f"CUDA-event timed over {TIMED_FRAMES} steady-state frames; "
+              f"host clock {host_s * 1000.0 / TIMED_FRAMES:.3f} ms/frame")
+
+    chain = ProcessingChain(**entry_params())
+    timed(chain.process_device, "chain (entry() params)")
+    stab = Stabilizer(StabilizerParams(smoothing_radius=15),
+                      mode=ModeParams())
+    timed(stab.stabilize_device, "bare Stabilizer(smoothing_radius=15)")
+
+
+def small_reference(torch, dev) -> None:
+    """Phase 5b: the CUDA chain (kernels) against the CPU chain (plain
+    versions) on a small input, both fed the same RANSAC draws."""
+    from video_stab_tpu_torch.core.chain import ProcessingChain
+    from video_stab_tpu_torch.core.params import (ModeParams,
+                                                  RollCorrectionParams,
+                                                  StabilizerParams)
+
+    h, w = 288, 512
+    frames = make_frames(h, w, 24, seed=2)
+    sp = StabilizerParams(smoothing_radius=5, analysis_width=128,
+                          analysis_height=72, max_corners=64,
+                          ransac_hypotheses=64)
+    rng = np.random.default_rng(3)
+    draws = rng.random((len(frames), sp.ransac_hypotheses, 2))
+    outs = {}
+    angles = {}
+    for use_cuda in (False, True):
+        k = iter(range(len(frames)))
+
+        def inject(n_valid, _k=k):
+            hi = max(int(n_valid), 1)
+            return torch.from_numpy(
+                np.minimum(np.floor(draws[next(_k)] * hi), hi - 1)
+                .astype(np.int64))
+
+        p = entry_params()
+        p["mode"] = ModeParams(use_cuda=use_cuda, enhancer_enabled=True,
+                               roll_correction_enabled=True,
+                               stabilizer_enabled=True)
+        p["roll"] = RollCorrectionParams(hough_threshold=40)
+        p["stabilizer"] = sp
+        chain = ProcessingChain(**p, ransac_draws=inject)
+        got = [chain.process(f) for f in frames]
+        got = [g for g in got if g is not None]
+        while (f := chain.flush()) is not None:
+            got.append(f)
+        outs[use_cuda] = np.stack(got)
+        angles[use_cuda] = float(chain.state.roll.smoothed_angle)
+    d = np.abs(outs[True].astype(int) - outs[False].astype(int))
+    same = float((d <= 1).mean())
+    print(f"small input {h}x{w}: CUDA vs CPU chain: {len(outs[True])} "
+          f"frames, {same * 100:.4f}% of px within 1, max diff {d.max()}, "
+          f"roll angle {angles[True]:.6f} vs {angles[False]:.6f}")
+    assert same >= 0.995 and abs(angles[True] - angles[False]) < 1e-3
+
+
+def main() -> int:
+    import torch
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}")
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    smi = nvidia_smi()
+    print(f"card: {smi}")
+    import video_stab_tpu_torch  # noqa: F401 (TF32 off)
+    from video_stab_tpu_torch.kernels import _lib
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    lib_path = _lib.build()
+    _lib.library()
+    print(f"build: {lib_path.name} in {time.perf_counter() - t0:.1f} s")
+    for line in lib_path.with_suffix(".log").read_text().splitlines():
+        if "registers" in line or "spill" in line.lower():
+            print(f"  ptxas: {line.strip()}")
+
+    kernels = check_kernels(torch, dev)
+
+    pool = torch.from_numpy(make_frames(1080, 1920, N_FRAMES)).to(dev)
+    launches = run_slice(torch, dev, pool)
+    steady_state(torch, dev, pool)
+    small_reference(torch, dev)
+
+    meta = {
+        "warp_affine_u8": ("video_stab_tpu_torch/csrc/warp.cu",
+                           "video_stab_tpu/pallas/warp.py:112"),
+        "corner_response": ("video_stab_tpu_torch/csrc/features.cu",
+                            "video_stab_tpu/pallas/features.py:43"),
+        "enhance_u8": ("video_stab_tpu_torch/csrc/enhance.cu",
+                       "video_stab_tpu/pallas/enhance.py:28"),
+    }
+    rows = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
+             "launches": launches[name],
+             "max_abs_err": kernels[name]["max_abs_err"],
+             "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"]}
+            for name, (src, rep) in meta.items()]
+    print(json.dumps({"kernels": rows}))
+    print(nvidia_smi())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,40 @@
+"""PyTorch/CUDA port of video_stab_tpu.
+
+The package mirrors ``video_stab_tpu``'s layout and names (``ops/``,
+``motion/``, ``core/``, and ``kernels/`` in place of ``pallas/``), so that
+``video_stab_tpu_torch/ops/lk.py`` is the counterpart of
+``video_stab_tpu/ops/lk.py``. It imports ``torch`` and ``numpy`` and never
+``jax``.
+
+Every function takes and returns tensors on one device. The streaming
+wrappers (``core.stabilizer.Stabilizer``, ``core.chain.ProcessingChain``)
+pick that device once, from ``ModeParams.use_cuda`` (:func:`pick_device`).
+The three hand-written CUDA kernels (``csrc/``) run on CUDA tensors; a CPU
+tensor takes each kernel's plain PyTorch version (``kernels/``).
+
+Importing the package turns TF32 off for matmuls and cuDNN convolutions:
+the filters, resizes and LK's normal equations need full float32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+def pick_device(use_cuda: bool) -> torch.device:
+    """The device a stream runs on: CUDA when ``use_cuda``, else the CPU.
+
+    There is no silent fallback: ``use_cuda=True`` without a CUDA device
+    raises."""
+    if not use_cuda:
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("use_cuda=True but torch finds no CUDA device; "
+                           "pass ModeParams(use_cuda=False) to run on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+__all__ = ["pick_device"]

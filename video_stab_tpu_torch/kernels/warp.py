@@ -1,0 +1,85 @@
+"""K1: the affine warp, u8 HWC -> u8 HWC (csrc/warp.cu).
+
+Counterpart of ``video_stab_tpu/pallas/warp.py:warp_affine_u8``. The
+kernel reads the inverse matrix from device memory, so a frame's matrix
+never crosses to the host. The TPU kernel's envelope, tier ladder and tile
+pick have no counterpart: the CUDA kernel is exact bilinear for any affine
+map, where the JAX path clamps outside its static envelope.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from video_stab_tpu_torch.kernels import _lib
+from video_stab_tpu_torch.ops.warp import (
+    BORDER_CONSTANT,
+    affine_coords,
+    invert_affine,
+    sample_bilinear,
+)
+
+LAUNCHES = 0    # kernel launches since import (or the last reset)
+
+
+def warp_affine_u8(img: torch.Tensor, m: torch.Tensor,
+                   out_h: Optional[int] = None, out_w: Optional[int] = None,
+                   border_mode: int = BORDER_CONSTANT,
+                   border_value: float = 0.0,
+                   inverse_map: bool = False) -> torch.Tensor:
+    """Affine warp of a u8 (H, W) or (H, W, C) image, C in {1, 3}:
+    dst(x, y) = src(M^-1 (x, y)), bilinear, rounded half to even.
+
+    m: (2, 3) forward map (the inverse when ``inverse_map``), a float
+    tensor on img's device; the inverse is taken by torch ops there. A CUDA
+    image launches K1; a CPU image takes the plain version."""
+    out_h = out_h if out_h is not None else img.shape[0]
+    out_w = out_w if out_w is not None else img.shape[1]
+    m = m.to(torch.float32)
+    minv = (m if inverse_map else invert_affine(m)).reshape(6)
+    if img.is_cuda:
+        return warp_affine_u8_cuda(img, minv, out_h, out_w, border_mode,
+                                   border_value)
+    if img.device.type != "cpu":
+        raise ValueError(f"warp_affine_u8: unsupported device {img.device}")
+    return warp_affine_u8_plain(img, minv, out_h, out_w, border_mode,
+                                border_value)
+
+
+def warp_affine_u8_plain(img: torch.Tensor, minv: torch.Tensor, out_h: int,
+                         out_w: int, border_mode: int = BORDER_CONSTANT,
+                         border_value: float = 0.0) -> torch.Tensor:
+    """Plain PyTorch version of K1 (any device): the exact gather warp of
+    ``ops/warp.py`` with the same float32 arithmetic, then round half to
+    even and clip. minv: the (6,) inverse map."""
+    sx, sy = affine_coords(minv.reshape(2, 3), out_h, out_w)
+    out = sample_bilinear(img, sx, sy, border_mode, border_value)
+    return torch.clamp(torch.round(out), 0.0, 255.0).to(torch.uint8)
+
+
+def warp_affine_u8_cuda(img: torch.Tensor, minv: torch.Tensor, out_h: int,
+                        out_w: int, border_mode: int = BORDER_CONSTANT,
+                        border_value: float = 0.0) -> torch.Tensor:
+    """Launch K1 on the current stream. minv: (6,) float32 inverse map on
+    img's device."""
+    global LAUNCHES
+    _lib.require_cuda(img, "warp_affine_u8 img", torch.uint8, (2, 3))
+    _lib.require_cuda(minv, "warp_affine_u8 minv", torch.float32, (1,))
+    ch = 1 if img.dim() == 2 else img.shape[2]
+    if ch not in (1, 3) or minv.numel() != 6 or minv.device != img.device:
+        raise ValueError(f"warp_affine_u8: bad shapes img {tuple(img.shape)} "
+                         f"minv {tuple(minv.shape)} on {minv.device}")
+    if border_mode not in range(5):
+        raise ValueError(f"warp_affine_u8: unknown border mode {border_mode}")
+    h, w = img.shape[:2]
+    shape = (out_h, out_w) if img.dim() == 2 else (out_h, out_w, ch)
+    out = torch.empty(shape, dtype=torch.uint8, device=img.device)
+    rc = _lib.library().vs_warp_affine_u8(
+        img.data_ptr(), h, w, ch, out.data_ptr(), out_h, out_w,
+        minv.data_ptr(), border_mode, float(border_value),
+        _lib.stream_handle(img.device))
+    _lib.check(rc, "warp_affine_u8")
+    LAUNCHES += 1
+    return out

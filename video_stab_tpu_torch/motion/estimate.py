@@ -1,0 +1,118 @@
+"""Frame-to-frame motion estimation over masked fixed-capacity point sets.
+
+Counterpart of ``video_stab_tpu/motion/estimate.py:estimate_similarity_ransac``:
+RANSAC over 4-DOF similarity models, every hypothesis scored in parallel,
+then a closed-form least-squares refit on the best inlier set.
+
+The hypotheses' draws cannot be JAX's (``jax.random.randint`` on the
+stream key has no torch counterpart). By default they come from a
+``torch.Generator`` on the points' device; a caller that must reproduce the
+JAX package's estimates passes JAX's own draws as ``draws``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def _similarity_from_two(p1, p2, q1, q2):
+    """Exact similarity from two correspondences via complex ratio
+    (batched over the leading axis)."""
+    dp = p2 - p1
+    dq = q2 - q1
+    denom = dp[..., 0] * dp[..., 0] + dp[..., 1] * dp[..., 1]
+    ok = denom > 1e-6
+    safe = torch.where(ok, denom, torch.ones_like(denom))
+    a = (dq[..., 0] * dp[..., 0] + dq[..., 1] * dp[..., 1]) / safe
+    b = (dq[..., 1] * dp[..., 0] - dq[..., 0] * dp[..., 1]) / safe
+    tx = q1[..., 0] - (a * p1[..., 0] - b * p1[..., 1])
+    ty = q1[..., 1] - (b * p1[..., 0] + a * p1[..., 1])
+    return torch.stack([a, b, tx, ty], dim=-1), ok
+
+
+def _similarity_lsq(prev: torch.Tensor, curr: torch.Tensor, w: torch.Tensor):
+    """Weighted least-squares similarity fit (global optimum for 4-DOF)."""
+    n = w.sum()
+    ok = n >= 2.0
+    safe_n = torch.where(ok, n, torch.ones_like(n))
+    pm = (prev * w[:, None]).sum(dim=0) / safe_n
+    qm = (curr * w[:, None]).sum(dim=0) / safe_n
+    pc = (prev - pm) * w[:, None]
+    qc = curr - qm
+    dot = (pc[:, 0] * qc[:, 0] + pc[:, 1] * qc[:, 1]).sum()
+    cross = (pc[:, 0] * qc[:, 1] - pc[:, 1] * qc[:, 0]).sum()
+    norm = ((prev - pm) ** 2 * w[:, None]).sum()
+    big = norm > 1e-9
+    safe_norm = torch.where(big, norm, torch.ones_like(norm))
+    a = torch.where(big, dot / safe_norm, torch.ones_like(dot))
+    b = torch.where(big, cross / safe_norm, torch.zeros_like(cross))
+    tx = qm[0] - (a * pm[0] - b * pm[1])
+    ty = qm[1] - (b * pm[0] + a * pm[1])
+    return torch.stack([a, b, tx, ty]), ok
+
+
+def _params_to_matrix(theta: torch.Tensor) -> torch.Tensor:
+    a, b, tx, ty = theta[0], theta[1], theta[2], theta[3]
+    return torch.stack([torch.stack([a, -b, tx]), torch.stack([b, a, ty])])
+
+
+def ransac_draws(generator: torch.Generator, n_hypotheses: int,
+                 n_valid: torch.Tensor) -> torch.Tensor:
+    """(K, 2) uniform draws in [0, max(n_valid, 1)) on the generator's
+    device: floor(U * max(n_valid, 1)), no host read."""
+    u = torch.rand((n_hypotheses, 2), generator=generator,
+                   device=n_valid.device)
+    hi = torch.clamp(n_valid, min=1).to(torch.float32)
+    return torch.floor(u * hi).to(torch.int64).clamp(max=hi.to(torch.int64) - 1)
+
+
+def estimate_similarity_ransac(
+    prev: torch.Tensor, curr: torch.Tensor, mask: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    threshold: float = 5.0, n_hypotheses: int = 500,
+    draws: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """RANSAC 4-DOF similarity estimate (estimateAffinePartial2D semantics).
+
+    Args:
+      prev/curr: (N, 2) float32 point sets, (x, y).
+      mask: (N,) bool validity.
+      generator: the stream's generator for the hypotheses' draws.
+      draws: optional (K, 2) int64 draws in [0, max(n_valid, 1)) to use
+        instead — JAX's ``jax.random.randint(key, (K, 2), 0,
+        max(n_valid, 1))``, for parity with the JAX package.
+
+    Returns:
+      m: (2, 3) float32 transform (identity when under 4 valid points).
+      ok: scalar bool — estimate valid.
+      inliers: (N,) bool inlier mask of the final model.
+    """
+    n_valid = mask.to(torch.int32).sum()
+    # Compact valid indices to the front so uniform sampling hits valid points.
+    order = torch.argsort((~mask).to(torch.uint8), stable=True)
+    if draws is None:
+        if generator is None:
+            raise ValueError("pass a generator or the draws")
+        draws = ransac_draws(generator, n_hypotheses, n_valid)
+    samples = order[draws.to(device=order.device, dtype=torch.int64)]
+    i, j = samples[:, 0], samples[:, 1]
+    theta, ok = _similarity_from_two(prev[i], prev[j], curr[i], curr[j])
+    ok = ok & (i != j)
+    px, py = prev[:, 0], prev[:, 1]
+    a, b = theta[:, 0:1], theta[:, 1:2]
+    rx = a * px - b * py + theta[:, 2:3]
+    ry = b * px + a * py + theta[:, 3:4]
+    err2 = (rx - curr[:, 0]) ** 2 + (ry - curr[:, 1]) ** 2
+    inl = mask[None, :] & (err2 < threshold * threshold)
+    scores = torch.where(ok, inl.to(torch.int32).sum(dim=1),
+                         torch.full_like(n_valid, -1))
+    best = torch.argmax(scores).view(1)       # first maximum, as jnp.argmax
+    best_inliers = inl.index_select(0, best)[0]
+
+    theta, fit_ok = _similarity_lsq(prev, curr, best_inliers.to(torch.float32))
+    enough = (n_valid >= 4) & (scores.index_select(0, best)[0] >= 2) & fit_ok
+    eye = torch.eye(2, 3, dtype=torch.float32, device=prev.device)
+    m = torch.where(enough, _params_to_matrix(theta), eye)
+    return m, enough, best_inliers & enough

@@ -1,0 +1,133 @@
+"""Shi-Tomasi corner detection with fixed-capacity outputs.
+
+Counterpart of ``video_stab_tpu/ops/features.py``. The detector returns
+exactly ``max_corners`` point slots plus a validity mask. The response and
+its 3x3 peak mask come from K3 (``kernels/features.py``). Candidates are
+the exact top ``n_candidates`` by response, as the JAX package's
+``topk="flat"`` path takes them; its ``"staged"`` top-k and the row-budget
+cascade are TPU workarounds and are not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from video_stab_tpu_torch.kernels.features import (  # noqa: F401 (re-export)
+    corner_response,
+    dilate3x3 as _dilate3x3,
+    min_eig_response,
+)
+
+# Rounds of the greedy selection run between two checks for convergence.
+# Each check is one device->host read; real content converges in < 10
+# rounds, so a frame's detection costs one or two reads.
+NMS_ROUNDS_PER_SYNC = 8
+NMS_SYNCS = 0   # host reads the NMS loop has made since import
+
+
+def top_candidates(values: torch.Tensor, k: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k largest of a 1-D tensor, ties to the lower index — what
+    ``lax.top_k`` returns (``torch.topk`` orders ties arbitrarily on CUDA)."""
+    vals, idx = torch.sort(values, descending=True, stable=True)
+    return vals[:k], idx[:k]
+
+
+def good_features_to_track(
+    gray: torch.Tensor,
+    max_corners: int = 200,
+    quality_level: float = 0.01,
+    min_distance: float = 30.0,
+    block_size: int = 3,
+    roi: Optional[torch.Tensor] = None,
+    n_candidates: int = 2048,
+    topk: str = "auto",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """goodFeaturesToTrack with static shapes.
+
+    Args:
+      gray: (H, W) float32 u8-domain grayscale.
+      roi: optional (4,) [x, y, w, h] integer tensor; response outside is
+           zeroed.
+      topk: accepted and ignored (a TPU layout knob).
+
+    Returns:
+      pts:  (max_corners, 2) float32 (x, y), quality-descending order.
+      mask: (max_corners,) bool validity.
+    """
+    del topk
+    h, w = gray.shape
+    if block_size == 3:
+        resp, is_peak = corner_response(gray)
+    else:
+        resp = min_eig_response(gray, block_size)
+        is_peak = resp >= _dilate3x3(resp)
+    if roi is not None:
+        ys = torch.arange(h, device=gray.device)[:, None]
+        xs = torch.arange(w, device=gray.device)[None, :]
+        inside = ((xs >= roi[0]) & (xs < roi[0] + roi[2]) &
+                  (ys >= roi[1]) & (ys < roi[1] + roi[3]))
+        resp = torch.where(inside, resp, torch.zeros_like(resp))
+        is_peak = resp >= _dilate3x3(resp)
+    thresh = quality_level * resp.max()
+    cand = torch.where(is_peak & (resp > thresh), resp,
+                       torch.full_like(resp, -1.0))
+    top_vals, top_idx = top_candidates(cand.reshape(-1),
+                                       min(n_candidates, h * w))
+    pts, mask, _ = _nms_compact(top_vals, top_idx, w, max_corners,
+                                min_distance)
+    return pts, mask
+
+
+def _nms_compact(top_vals: torch.Tensor, top_idx: torch.Tensor, w: int,
+                 max_corners: int, min_distance: float
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Greedy min-distance selection over quality-ordered candidates +
+    order-preserving compaction. Returns (pts, mask, n_selected_total).
+
+    Greedy selection == the lexicographically-first maximal independent set
+    of the conflict graph under quality order, resolved in parallel rounds:
+    SELECT i when every higher-ranked conflicting j is already suppressed;
+    SUPPRESS i when a selected j conflicts with it. Rounds past convergence
+    change nothing, so ``NMS_ROUNDS_PER_SYNC`` rounds run between two reads
+    of the convergence flag."""
+    global NMS_SYNCS
+    n_cand = top_vals.shape[0]
+    dev = top_vals.device
+    cand_x = (top_idx % w).to(torch.float32)
+    cand_y = torch.div(top_idx, w, rounding_mode="floor").to(torch.float32)
+    k = max_corners
+    min_d2 = float(np.float32(min_distance * min_distance))
+
+    valid = top_vals > 0.0
+    d2 = ((cand_x[:, None] - cand_x[None, :]) ** 2
+          + (cand_y[:, None] - cand_y[None, :]) ** 2)
+    rank = torch.arange(n_cand, device=dev)
+    conflict = (d2 < min_d2) & (rank[None, :] < rank[:, None]) \
+        & valid[None, :]
+
+    unknown = valid
+    selected = torch.zeros(n_cand, dtype=torch.bool, device=dev)
+    while True:
+        for _ in range(NMS_ROUNDS_PER_SYNC):
+            active = unknown | selected
+            higher_active = (conflict & active[None, :]).any(dim=1)
+            newly = unknown & ~higher_active
+            selected = selected | newly
+            suppressed = (conflict & selected[None, :]).any(dim=1)
+            unknown = unknown & ~newly & ~suppressed
+        NMS_SYNCS += 1
+        if not bool(unknown.any()):
+            break
+
+    pos = torch.cumsum(selected.to(torch.int32), 0) - 1
+    take = selected & (pos < k)
+    idx = torch.where(take, pos, torch.full_like(pos, k)).to(torch.int64)
+    pts = torch.zeros((k + 1, 2), dtype=torch.float32, device=dev)
+    pts.index_copy_(0, idx, torch.stack([cand_x, cand_y], dim=-1))
+    mask = torch.zeros(k + 1, dtype=torch.bool, device=dev)
+    mask.index_copy_(0, idx, take)
+    return pts[:k], mask[:k], selected.sum()

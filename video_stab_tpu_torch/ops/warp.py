@@ -1,0 +1,175 @@
+"""Affine warping with OpenCV border-mode semantics.
+
+Counterpart of the slice's part of ``video_stab_tpu/ops/warp.py``.
+``warp_affine(img, M)`` computes dst(x, y) = src(M^{-1} [x, y, 1]) with
+bilinear sampling, matching cv2.warpAffine without WARP_INVERSE_MAP.
+``warp_affine_fast`` is the u8 hot-path dispatcher: the CUDA kernel K1 on
+a CUDA tensor, its plain version on a CPU tensor (``kernels/warp.py``).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+BORDER_CONSTANT = 0
+BORDER_REPLICATE = 1
+BORDER_REFLECT = 2
+BORDER_WRAP = 3
+BORDER_REFLECT_101 = 4
+
+
+def _map_index(i: torch.Tensor, n: int, mode: int
+               ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """In-range index for integer sample index i, plus the constant mode's
+    validity (None for the other modes, where every tap is valid)."""
+    if mode == BORDER_CONSTANT:
+        return i.clamp(0, n - 1), (i >= 0) & (i <= n - 1)
+    if mode == BORDER_REPLICATE:
+        return i.clamp(0, n - 1), None
+    if n == 1 and mode in (BORDER_REFLECT, BORDER_REFLECT_101):
+        return torch.zeros_like(i), None
+    if mode == BORDER_REFLECT:
+        period = 2 * n
+        j = torch.remainder(i, period)
+        return torch.where(j >= n, period - 1 - j, j), None
+    if mode == BORDER_REFLECT_101:
+        period = 2 * (n - 1)
+        j = torch.remainder(i, period)
+        return torch.where(j >= n, period - j, j), None
+    if mode == BORDER_WRAP:
+        return torch.remainder(i, n), None
+    raise ValueError(f"unknown border mode {mode}")
+
+
+def sample_bilinear(img: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
+                    border_mode: int = BORDER_CONSTANT,
+                    border_value: float = 0.0) -> torch.Tensor:
+    """Bilinear sample img (H, W) or (H, W, C) at float32 coords (xs, ys):
+    x-interpolation first, then y, each product and sum rounded to float32
+    (the order K1 uses). Returns float32 samples of xs's shape (+ C)."""
+    has_c = img.dim() == 3
+    h, w = img.shape[:2]
+    src = img.float()
+    x0f = torch.floor(xs)
+    y0f = torch.floor(ys)
+    fx = xs - x0f
+    fy = ys - y0f
+    x0 = x0f.clamp(-1e9, 1e9).to(torch.int64)
+    y0 = y0f.clamp(-1e9, 1e9).to(torch.int64)
+    ym0, yv0 = _map_index(y0, h, border_mode)
+    ym1, yv1 = _map_index(y0 + 1, h, border_mode)
+    xm0, xv0 = _map_index(x0, w, border_mode)
+    xm1, xv1 = _map_index(x0 + 1, w, border_mode)
+
+    def tap(ym, yv, xm, xv):
+        v = src[ym, xm]
+        if yv is not None:
+            ok = yv & xv
+            if has_c:
+                ok = ok[..., None]
+            v = torch.where(ok, v, torch.full_like(v, border_value))
+        return v
+
+    v00 = tap(ym0, yv0, xm0, xv0)
+    v01 = tap(ym0, yv0, xm1, xv1)
+    v10 = tap(ym1, yv1, xm0, xv0)
+    v11 = tap(ym1, yv1, xm1, xv1)
+    if has_c:
+        fx, fy = fx[..., None], fy[..., None]
+    gx, gy = 1.0 - fx, 1.0 - fy
+    top = v00 * gx + v01 * fx
+    bot = v10 * gx + v11 * fx
+    return top * gy + bot * fy
+
+
+def invert_affine(m: torch.Tensor) -> torch.Tensor:
+    """Invert a (2, 3) affine matrix (cv::invertAffineTransform), on m's
+    device."""
+    a, b, tx = m[0, 0], m[0, 1], m[0, 2]
+    c, d, ty = m[1, 0], m[1, 1], m[1, 2]
+    det = a * d - b * c
+    det = torch.where(det.abs() < 1e-12, torch.full_like(det, 1e-12), det)
+    ia, ib = d / det, -b / det
+    ic, id_ = -c / det, a / det
+    itx = -(ia * tx + ib * ty)
+    ity = -(ic * tx + id_ * ty)
+    return torch.stack([torch.stack([ia, ib, itx]),
+                        torch.stack([ic, id_, ity])])
+
+
+def affine_coords(minv: torch.Tensor, out_h: int, out_w: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Source coordinates (sx, sy), each (out_h, out_w) float32, of the
+    inverse map: (a*x + b*y) + c, as K1 computes them."""
+    dev = minv.device
+    ys = torch.arange(out_h, dtype=torch.float32, device=dev)[:, None]
+    xs = torch.arange(out_w, dtype=torch.float32, device=dev)[None, :]
+    sx = (minv[0, 0] * xs + minv[0, 1] * ys) + minv[0, 2]
+    sy = (minv[1, 0] * xs + minv[1, 1] * ys) + minv[1, 2]
+    return sx, sy
+
+
+def warp_affine(img: torch.Tensor, m: torch.Tensor,
+                out_h: int | None = None, out_w: int | None = None,
+                border_mode: int = BORDER_CONSTANT,
+                border_value: float = 0.0,
+                inverse_map: bool = False) -> torch.Tensor:
+    """cv2.warpAffine: dst(x,y) = src(M^{-1}(x,y)), bilinear, float32 out.
+
+    m: (2, 3) float affine (dst <- src forward map unless inverse_map)."""
+    out_h = out_h if out_h is not None else img.shape[0]
+    out_w = out_w if out_w is not None else img.shape[1]
+    m = m.to(torch.float32)
+    minv = m if inverse_map else invert_affine(m)
+    sx, sy = affine_coords(minv, out_h, out_w)
+    return sample_bilinear(img, sx, sy, border_mode, border_value)
+
+
+def warp_affine_fast(img: torch.Tensor, m: torch.Tensor,
+                     out_h: int | None = None, out_w: int | None = None,
+                     border_mode: int = BORDER_CONSTANT,
+                     border_value: float = 0.0,
+                     max_angle_deg: float = 6.0,
+                     max_shift: int = 128,
+                     branch: str = "auto") -> torch.Tensor:
+    """u8-domain warp for the hot per-frame paths, through K1.
+
+    Float input is quantized to u8 first (round half to even, clip), as the
+    JAX package's ``warp_affine_fast`` does; the result is u8 (the JAX
+    version returns float32 holding the same integers).
+
+    ``max_angle_deg``, ``max_shift`` and ``branch`` size the TPU kernel's
+    static envelope and are accepted and ignored: K1 is exact for any
+    affine map, where the JAX path clamps outside its envelope."""
+    # Imported here: kernels.warp imports this module for its plain version.
+    from video_stab_tpu_torch.kernels.warp import warp_affine_u8
+    from video_stab_tpu_torch.ops.color import saturate_u8
+    del max_angle_deg, max_shift, branch
+    return warp_affine_u8(saturate_u8(img), m, out_h, out_w, border_mode,
+                          border_value)
+
+
+def rotation_matrix_2d(center_x: float, center_y: float,
+                       angle_deg: torch.Tensor, scale: float = 1.0
+                       ) -> torch.Tensor:
+    """cv2.getRotationMatrix2D (positive angle rotates CCW in y-down image
+    coords) for a float32 angle tensor; (2, 3) on the angle's device."""
+    a = angle_deg.to(torch.float32) * (math.pi / 180.0)
+    alpha = scale * torch.cos(a)
+    beta = scale * torch.sin(a)
+    tx = (1.0 - alpha) * center_x - beta * center_y
+    ty = beta * center_x + (1.0 - alpha) * center_y
+    return torch.stack([torch.stack([alpha, beta, tx]),
+                        torch.stack([-beta, alpha, ty])])
+
+
+def similarity_matrix(dx: torch.Tensor, dy: torch.Tensor, da: torch.Tensor,
+                      scale: float = 1.0) -> torch.Tensor:
+    """The stabilizer's (2, 3) rigid matrix
+    [[cos da, -sin da, dx], [sin da, cos da, dy]]."""
+    c = torch.cos(da) * scale
+    s = torch.sin(da) * scale
+    return torch.stack([torch.stack([c, -s, dx.to(torch.float32)]),
+                        torch.stack([s, c, dy.to(torch.float32)])])
