@@ -7,19 +7,29 @@ Phases (any failure is an uncaught exception and a nonzero exit):
 
 1. Environment: torch and CUDA versions, the card's name and power limit.
    Without a CUDA device the script exits 1 before printing any result.
-2. Build: the three hand-written kernels (video_stab_tpu_torch/csrc/) are
-   compiled from the checkout's sources into build/torch_kernels/.
+2. Build: the hand-written kernels (video_stab_tpu_torch/csrc/, four
+   sources, one nvcc each, started together) are compiled from the
+   checkout's sources into build/torch_kernels/.
 3. Kernels against their plain PyTorch versions on the card, at the shapes
-   the main path gives them, with the tolerances of the CPU parity tests;
+   the main paths give them, with the tolerances of the CPU parity tests;
    kernel and plain times from CUDA events (median of 25 after warm-up).
-4. The slice: ``ProcessingChain`` with exactly the ``__graft_entry__.entry()``
-   parameters at 1920x1080 over 64 frames of textured content with a ~2 deg
-   tilted horizon and per-frame jitter, then ``flush()``. The kernels'
-   launch counters are zeroed just before and read just after; each must be
-   > 0. Output frames, the roll angle and the queue drain are checked.
-5. Steady-state ms/frame of the chain and of the bare ``Stabilizer`` at
-   1080p (CUDA events), and the CUDA chain against the CPU (plain) chain on
-   a small input.
+4. The paths, each with the kernels' launch counters zeroed just before it
+   and read just after (each kernel of the path must be > 0):
+   a. ``ProcessingChain`` with exactly the ``__graft_entry__.entry()``
+      parameters at 1920x1080 over 64 frames of textured content with a
+      ~2 deg tilted horizon and per-frame jitter, then ``flush()``; output
+      frames, the roll angle and the queue drain are checked (K1, K3, K4);
+   b. the streaming homography ``Stabilizer`` (smoothing_radius=15) at
+      1920x1080 over 64 frames, then ``flush()`` (K2, K3); its host reads
+      per steady-state frame are counted with torch's sync debug mode;
+   c. offline ``stabilize_clip`` at 1920x1080 over 32 frames, similarity +
+      box (K1, K5b, K3) and homography + box (K2, K5b, K3).
+5. Steady-state ms/frame of the chain, the bare ``Stabilizer`` and the
+   homography ``Stabilizer`` at 1080p (CUDA events); offline frames/s of
+   both models over 240 frames at 1080p with the analysis, smoothing and
+   warp stages timed apart; and the CUDA runs against the CPU (plain) runs
+   on a small input: the chain, the homography ``Stabilizer`` and offline
+   ``stabilize_clip`` of both models, all fed the same RANSAC draws.
 
 The line before last is the card's ``nvidia-smi`` name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -27,6 +37,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import collections
 import json
 import statistics
 import subprocess
@@ -37,6 +48,8 @@ import numpy as np
 
 N_FRAMES = 64
 TIMED_FRAMES = 60
+OFFLINE_SLICE_FRAMES = 32
+OFFLINE_TIMED_FRAMES = 240
 SEED = 0
 
 
@@ -192,6 +205,72 @@ def check_kernels(torch, dev) -> dict:
           f"plain {plain_ms:.4f} ms")
     results["enhance_u8"] = dict(ms=ms, plain_ms=plain_ms,
                                  max_abs_err=float(d.max()))
+    results.update(check_new_kernels(torch, dev, frame))
+    return results
+
+
+def check_new_kernels(torch, dev, frame) -> dict:
+    """Phase 3, K2 / K5a / K5b: bit for bit against the plain versions."""
+    from video_stab_tpu_torch.kernels import traj as ktraj
+    from video_stab_tpu_torch.kernels import warp as kwarp
+    from video_stab_tpu_torch.ops.warp import invert_homography
+
+    results = {}
+    ang = np.radians(0.4)
+    h_stab = torch.tensor([[np.cos(ang), -np.sin(ang), 2.1],
+                           [np.sin(ang), np.cos(ang), -1.3],
+                           [3e-5, -2e-5, 1.0]], dtype=torch.float32).to(dev)
+    hinv = invert_homography(h_stab).reshape(9).contiguous()
+    got = kwarp.warp_homography_u8_cuda(frame, hinv, 1080, 1920)
+    want = kwarp.warp_homography_u8_plain(frame, hinv, 1080, 1920)
+    torch.cuda.synchronize()
+    d = (got.int() - want.int()).abs()
+    err = int(d.max())
+    print(f"K2 warp_homography_u8 1080x1920x3 constant: max|kernel-plain| "
+          f"{err}, {int((d > 0).sum())} differing px")
+    assert err == 0
+    ms = time_ms(lambda: kwarp.warp_homography_u8_cuda(frame, hinv, 1080,
+                                                       1920), torch)
+    plain_ms = time_ms(lambda: kwarp.warp_homography_u8_plain(
+        frame, hinv, 1080, 1920), torch)
+    print(f"K2 warp_homography_u8 1080x1920x3: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms")
+    results["warp_homography_u8"] = dict(ms=ms, plain_ms=plain_ms,
+                                         max_abs_err=float(err))
+
+    rng = np.random.default_rng(7)
+
+    def path(c):
+        return torch.from_numpy(np.cumsum(rng.normal(0, 1, (240, c)), axis=0)
+                                .astype(np.float32)).to(dev)
+
+    k5 = [("box_filter_centered", ktraj.box_filter_centered_cuda,
+           ktraj.box_filter_centered_plain, path(3), 15),
+          ("box_filter_centered", ktraj.box_filter_centered_cuda,
+           ktraj.box_filter_centered_plain, path(9), 15),
+          ("box_filter_convolve", ktraj.box_filter_convolve_cuda,
+           ktraj.box_filter_convolve_plain, path(3), 8)]
+    ktraj.CONVOLVE_LAUNCHES = 0
+    for name, cuda_fn, plain_fn, p, r in k5:
+        got, want = cuda_fn(p, r), plain_fn(p, r)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        print(f"{name} ({p.shape[0]}, {p.shape[1]}) r={r}: "
+              f"max|kernel-plain| {err:.3e}, "
+              f"bit-exact {bool(torch.equal(got, want))}")
+        assert torch.equal(got, want), name
+        ms = time_ms(lambda: cuda_fn(p, r), torch)
+        plain_ms = time_ms(lambda: plain_fn(p, r), torch)
+        print(f"{name} ({p.shape[0]}, {p.shape[1]}) r={r}: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+        row = results.setdefault(name, dict(ms=ms, plain_ms=plain_ms,
+                                            max_abs_err=err, shapes=[]))
+        row["shapes"].append(f"({p.shape[0]}, {p.shape[1]}) r={r}: kernel "
+                             f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+    # K5a has no production caller: its launch count is phase 3's.
+    results["box_filter_convolve"]["phase3_launches"] = \
+        ktraj.CONVOLVE_LAUNCHES
     return results
 
 
@@ -210,17 +289,11 @@ def entry_params():
 def run_slice(torch, dev, pool) -> dict:
     """Phase 4: the entry() chain at 1080p, counters zeroed around it."""
     from video_stab_tpu_torch.core.chain import ProcessingChain
-    from video_stab_tpu_torch.kernels import enhance as kenh
-    from video_stab_tpu_torch.kernels import features as kfeat
-    from video_stab_tpu_torch.kernels import warp as kwarp
     from video_stab_tpu_torch.ops import features as tfeat
 
     chain = ProcessingChain(**entry_params())
     radius = chain.params.stabilizer.effective_radius
-    kmods = {"warp_affine_u8": kwarp, "corner_response": kfeat,
-             "enhance_u8": kenh}
-    for mod in kmods.values():
-        mod.LAUNCHES = 0
+    zero_counts()
     syncs0 = tfeat.NMS_SYNCS
     outs = []
     for i in range(N_FRAMES):
@@ -228,7 +301,9 @@ def run_slice(torch, dev, pool) -> dict:
         if out is not None:
             outs.append((i, out))
     torch.cuda.synchronize()
-    launches = {name: mod.LAUNCHES for name, mod in kmods.items()}
+    launches = {name: n for name, n in read_counts().items()
+                if name in ("warp_affine_u8", "corner_response",
+                            "enhance_u8")}
     nms_syncs = tfeat.NMS_SYNCS - syncs0
     print(f"slice: launches during the main path {launches}")
     print(f"slice: NMS host reads {nms_syncs} over {N_FRAMES} frames "
@@ -256,6 +331,149 @@ def run_slice(torch, dev, pool) -> dict:
     assert flushed == N_FRAMES - len(outs), (flushed, len(outs))
     print(f"slice: {len(outs)} frames emitted in stream, {flushed} by flush()")
     return launches
+
+
+def kernel_modules():
+    from video_stab_tpu_torch.kernels import enhance as kenh
+    from video_stab_tpu_torch.kernels import features as kfeat
+    from video_stab_tpu_torch.kernels import traj as ktraj
+    from video_stab_tpu_torch.kernels import warp as kwarp
+    return {"warp_affine_u8": (kwarp, "LAUNCHES"),
+            "warp_homography_u8": (kwarp, "HOMOGRAPHY_LAUNCHES"),
+            "corner_response": (kfeat, "LAUNCHES"),
+            "enhance_u8": (kenh, "LAUNCHES"),
+            "box_filter_convolve": (ktraj, "CONVOLVE_LAUNCHES"),
+            "box_filter_centered": (ktraj, "CENTERED_LAUNCHES")}
+
+
+def zero_counts() -> None:
+    for mod, attr in kernel_modules().values():
+        setattr(mod, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in kernel_modules().items()}
+
+
+def homography_params(**kw):
+    from video_stab_tpu_torch.core.params import StabilizerParams
+    return StabilizerParams(smoothing_radius=15, motion_model="homography",
+                            **kw)
+
+
+def run_homography_stream(torch, dev, pool) -> dict:
+    """Phase 4b: the streaming homography Stabilizer at 1080p, counters
+    zeroed around it; then the host reads of 8 steady-state frames."""
+    import warnings
+
+    from video_stab_tpu_torch.core.params import ModeParams
+    from video_stab_tpu_torch.core.stabilizer import Stabilizer
+    from video_stab_tpu_torch.ops import features as tfeat
+
+    stab = Stabilizer(homography_params(), mode=ModeParams())
+    radius = stab.params.effective_radius
+    zero_counts()
+    outs = []
+    for i in range(N_FRAMES):
+        out = stab.stabilize_device(pool[i])
+        if out is not None:
+            outs.append(out)
+    flushed = []
+    while (f := stab.flush()) is not None:
+        flushed.append(f)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"homography stream: launches {launches}")
+    assert launches["warp_homography_u8"] > 0 and \
+        launches["corner_response"] > 0, launches
+    assert len(outs) == N_FRAMES - radius + 1, len(outs)
+    assert len(flushed) == radius - 1, len(flushed)
+    for out in outs:
+        assert out.shape == pool.shape[1:] and out.dtype == torch.uint8
+    for f in flushed:
+        assert f.shape == pool.shape[1:] and f.dtype == np.uint8
+    st = stab.state_dict()
+    n = int(st["n_path"])
+    ring = st["path_ring"][:n]
+    assert ring.shape == (n, 9) and np.isfinite(ring).all(), ring.shape
+    print(f"homography stream: {len(outs)} frames emitted in stream, "
+          f"{len(flushed)} by flush(); last log-path |max| "
+          f"{float(np.abs(ring[-1]).max()):.4f}; envelope_exceeded "
+          f"{int(st['envelope_exceeded'])}")
+
+    # Host reads per steady-state frame: torch's sync debug mode warns on
+    # every synchronizing call; the library's own counters say which.
+    stab = Stabilizer(homography_params(), mode=ModeParams())
+    for i in range(24):
+        stab.stabilize_device(pool[i])
+    torch.cuda.synchronize()
+    nms0 = tfeat.NMS_SYNCS
+    n_win = 8
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for i in range(24, 24 + n_win):
+                stab.stabilize_device(pool[i])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # A warning is attributed to the Python line that called the op: the
+    # path's are the package's lines; others (torch's own frames) are
+    # printed below.
+    syncs = [w for w in caught if "synchroniz" in str(w.message)
+             and "video_stab_tpu_torch" in w.filename]
+    nms = tfeat.NMS_SYNCS - nms0
+    by_line = collections.Counter(
+        f"{w.filename.split('video_stab_tpu_torch/')[-1]}:{w.lineno}"
+        for w in syncs)
+    print(f"homography stream: {len(syncs)} synchronizing calls over "
+          f"{n_win} steady-state frames ({len(syncs) / n_win:.2f}/frame); "
+          f"the GFTT NMS reads counted by the library: {nms}")
+    for where, n in sorted(by_line.items()):
+        print(f"  {n} at video_stab_tpu_torch/{where}")
+    for w in caught:
+        if "synchroniz" in str(w.message) and \
+                "video_stab_tpu_torch" not in w.filename:
+            print(f"  other synchronizing call at {w.filename}:{w.lineno}")
+    # The package's reads: the NMS flag (ops/features.py) and the eigh /
+    # matrix_exp of motion/homography.py, nothing else.
+    n_feat = sum(n for k, n in by_line.items() if k.startswith("ops/features"))
+    n_hom = sum(n for k, n in by_line.items()
+                if k.startswith("motion/homography"))
+    assert n_feat == nms and n_feat + n_hom == len(syncs), by_line
+    return launches
+
+
+def run_offline(torch, dev, pool) -> dict:
+    """Phase 4c: offline stabilize_clip at 1080p, both models, counters
+    zeroed around each run."""
+    from video_stab_tpu_torch.core.params import StabilizerParams
+    from video_stab_tpu_torch.offline import stabilize_clip_device
+
+    clip = pool[:OFFLINE_SLICE_FRAMES]
+    total = {}
+    for label, params, needed in (
+            ("similarity+box", StabilizerParams(smoothing_radius=15),
+             ("warp_affine_u8", "box_filter_centered", "corner_response")),
+            ("homography+box", homography_params(),
+             ("warp_homography_u8", "box_filter_centered",
+              "corner_response"))):
+        zero_counts()
+        out = stabilize_clip_device(clip, params, device=dev)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        print(f"offline {label} {OFFLINE_SLICE_FRAMES} frames: launches "
+              f"{launches}")
+        assert all(launches[k] > 0 for k in needed), launches
+        assert out.shape == clip.shape and out.dtype == torch.uint8
+        std = float(out[-1].float().std())
+        print(f"offline {label}: output {tuple(out.shape)}, last frame std "
+              f"{std:.3f}")
+        assert std > 5.0
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
 
 
 def steady_state(torch, dev, pool) -> None:
@@ -288,6 +506,39 @@ def steady_state(torch, dev, pool) -> None:
     stab = Stabilizer(StabilizerParams(smoothing_radius=15),
                       mode=ModeParams())
     timed(stab.stabilize_device, "bare Stabilizer(smoothing_radius=15)")
+    stab = Stabilizer(homography_params(), mode=ModeParams())
+    timed(stab.stabilize_device,
+          "homography Stabilizer(smoothing_radius=15)")
+
+
+def offline_throughput(torch, dev) -> None:
+    """Phase 5b: offline frames/s over 240 frames at 1080p, both models,
+    the clip already on the card; stage times from CUDA events."""
+    from video_stab_tpu_torch.core.params import StabilizerParams
+    from video_stab_tpu_torch.offline import stabilize_clip_device
+
+    clip = torch.from_numpy(make_frames(1080, 1920, OFFLINE_TIMED_FRAMES,
+                                        seed=4)).to(dev)
+    for label, params in (("similarity+box",
+                           StabilizerParams(smoothing_radius=15)),
+                          ("homography+box", homography_params())):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        stages = {}
+        t0 = time.perf_counter()
+        out = stabilize_clip_device(clip, params, device=dev,
+                                    stage_ms=stages)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        assert out.shape == clip.shape
+        ms = sum(stages.values())
+        print(f"offline {label} 1080p x {OFFLINE_TIMED_FRAMES}: "
+              f"{OFFLINE_TIMED_FRAMES * 1000.0 / ms:.2f} frames/s "
+              f"(CUDA events {ms:.1f} ms: analyze {stages['analyze']:.1f}, "
+              f"smooth {stages['smooth']:.3f}, warp {stages['warp']:.1f}); "
+              f"host clock {wall * 1000.0:.1f} ms; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del out
 
 
 def small_reference(torch, dev) -> None:
@@ -335,6 +586,72 @@ def small_reference(torch, dev) -> None:
           f"frames, {same * 100:.4f}% of px within 1, max diff {d.max()}, "
           f"roll angle {angles[True]:.6f} vs {angles[False]:.6f}")
     assert same >= 0.995 and abs(angles[True] - angles[False]) < 1e-3
+    small_reference_homography(torch, frames, sp)
+    small_reference_offline(torch, frames, sp)
+
+
+def injected_draws(torch, n_steps: int, k: int, width: int, seed: int):
+    """A fresh draws hook: step i's (k, width) draws from one numpy table,
+    the same for the CUDA and the CPU run."""
+    u = np.random.default_rng(seed).random((n_steps, k, width))
+    steps = iter(range(n_steps))
+
+    def inject(n_valid):
+        hi = max(int(n_valid), 1)
+        return torch.from_numpy(np.minimum(np.floor(u[next(steps)] * hi),
+                                           hi - 1).astype(np.int64))
+    return inject
+
+
+def compare_small(label: str, a: np.ndarray, b: np.ndarray) -> None:
+    assert a.shape == b.shape, (a.shape, b.shape)
+    d = np.abs(a.astype(int) - b.astype(int))
+    same = float((d <= 1).mean())
+    print(f"{label}: {len(a)} frames, {same * 100:.4f}% of px within 1, "
+          f"max diff {d.max()}")
+    assert same >= 0.995, label
+
+
+def small_reference_homography(torch, frames, sp) -> None:
+    """The homography Stabilizer on the card against the CPU, fed the same
+    (K, 4) draws."""
+    import dataclasses
+
+    from video_stab_tpu_torch.core.params import ModeParams
+    from video_stab_tpu_torch.core.stabilizer import Stabilizer
+
+    p = dataclasses.replace(sp, motion_model="homography")
+    outs = {}
+    for use_cuda in (False, True):
+        stab = Stabilizer(p, mode=ModeParams(use_cuda=use_cuda),
+                          ransac_draws=injected_draws(
+                              torch, len(frames), p.ransac_hypotheses, 4, 5))
+        got = [o for o in (stab.stabilize(f) for f in frames)
+               if o is not None]
+        while (f := stab.flush()) is not None:
+            got.append(f)
+        outs[use_cuda] = np.stack(got)
+    compare_small(f"small input {frames.shape[1]}x{frames.shape[2]}: CUDA "
+                  "vs CPU homography Stabilizer", outs[True], outs[False])
+
+
+def small_reference_offline(torch, frames, sp) -> None:
+    """Offline stabilize_clip on the card against the CPU, both models, fed
+    the same draws."""
+    import dataclasses
+
+    from video_stab_tpu_torch.offline import stabilize_clip
+
+    for model, width in (("similarity", 2), ("homography", 4)):
+        p = dataclasses.replace(sp, motion_model=model)
+        outs = {dev: stabilize_clip(frames, p, device=dev,
+                                    ransac_draws=injected_draws(
+                                        torch, len(frames),
+                                        p.ransac_hypotheses, width, 6))
+                for dev in ("cpu", "cuda")}
+        compare_small(f"small input {frames.shape[1]}x{frames.shape[2]}: "
+                      f"CUDA vs CPU offline {model}+box", outs["cuda"],
+                      outs["cpu"])
 
 
 def main() -> int:
@@ -361,23 +678,44 @@ def main() -> int:
     kernels = check_kernels(torch, dev)
 
     pool = torch.from_numpy(make_frames(1080, 1920, N_FRAMES)).to(dev)
-    launches = run_slice(torch, dev, pool)
+    by_path = {"chain": run_slice(torch, dev, pool),
+               "homography stream": run_homography_stream(torch, dev, pool),
+               "offline": run_offline(torch, dev, pool)}
     steady_state(torch, dev, pool)
+    del pool
+    offline_throughput(torch, dev)
     small_reference(torch, dev)
 
     meta = {
         "warp_affine_u8": ("video_stab_tpu_torch/csrc/warp.cu",
                            "video_stab_tpu/pallas/warp.py:112"),
+        "warp_homography_u8": ("video_stab_tpu_torch/csrc/warp.cu",
+                               "video_stab_tpu/pallas/warp.py:424"),
         "corner_response": ("video_stab_tpu_torch/csrc/features.cu",
                             "video_stab_tpu/pallas/features.py:43"),
         "enhance_u8": ("video_stab_tpu_torch/csrc/enhance.cu",
                        "video_stab_tpu/pallas/enhance.py:28"),
+        "box_filter_convolve": ("video_stab_tpu_torch/csrc/traj.cu",
+                                "video_stab_tpu/pallas/traj.py:55"),
+        "box_filter_centered": ("video_stab_tpu_torch/csrc/traj.cu",
+                                "video_stab_tpu/pallas/traj.py:94"),
     }
-    rows = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-             "launches": launches[name],
-             "max_abs_err": kernels[name]["max_abs_err"],
-             "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"]}
-            for name, (src, rep) in meta.items()]
+    rows = []
+    for name, (src, rep) in meta.items():
+        paths = {p: c[name] for p, c in by_path.items() if c.get(name)}
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": rep, "launches": sum(paths.values()),
+               "launches_by_path": paths,
+               "max_abs_err": kernels[name]["max_abs_err"],
+               "ms": kernels[name]["ms"],
+               "plain_ms": kernels[name]["plain_ms"]}
+        if name == "box_filter_convolve":
+            # No production caller: the launches are phase 3's.
+            row["launches"] = kernels[name]["phase3_launches"]
+            row["launches_by_path"] = {"phase 3 (no production caller)":
+                                       row["launches"]}
+        rows.append(row)
+        assert row["launches"] > 0, row
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -55,6 +55,47 @@ def test_warp_kernel_matches_plain(dev, ch, mode):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("mode", range(5))
+@pytest.mark.parametrize("ch", [1, 3])
+def test_homography_kernel_matches_plain(dev, ch, mode):
+    """K2 and its plain version on the same H^-1: bit for bit."""
+    from video_stab_tpu_torch.kernels import warp as kwarp
+    from video_stab_tpu_torch.ops.warp import invert_homography
+    rng = np.random.default_rng(10 + mode)
+    shape = (67, 129, ch) if ch == 3 else (67, 129)
+    img = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+    ang = np.radians(5.0)
+    h = torch.tensor([[np.cos(ang), -np.sin(ang), 9.3],
+                      [np.sin(ang), np.cos(ang), -31.6],
+                      [4e-4, -3e-4, 1.0]], dtype=torch.float32).to(dev)
+    hinv = invert_homography(h).reshape(9).contiguous()
+    before = kwarp.HOMOGRAPHY_LAUNCHES
+    got = kwarp.warp_homography_u8(img, h, 50, 160, mode, 7.0)
+    assert kwarp.HOMOGRAPHY_LAUNCHES == before + 1
+    want = kwarp.warp_homography_u8_plain(img, hinv, 50, 160, mode, 7.0)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("c", [None, 3, 9])
+@pytest.mark.parametrize("n,r", [(240, 15), (37, 5), (1000, 50)])
+def test_box_filter_kernels_match_plain(dev, n, r, c):
+    """K5b (centered) and K5a (convolve) against their plain versions on
+    the same path: bit for bit."""
+    from video_stab_tpu_torch.kernels import traj as ktraj
+    rng = np.random.default_rng(n + r)
+    shape = (n,) if c is None else (n, c)
+    path = torch.from_numpy(np.cumsum(rng.normal(0, 1, shape), axis=0)
+                            .astype(np.float32)).to(dev)
+    before = (ktraj.CENTERED_LAUNCHES, ktraj.CONVOLVE_LAUNCHES)
+    got_c = ktraj.box_filter_centered(path, r)
+    got_v = ktraj.box_filter_convolve(path, r)
+    assert (ktraj.CENTERED_LAUNCHES, ktraj.CONVOLVE_LAUNCHES) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(got_c, ktraj.box_filter_centered_plain(path, r))
+    assert torch.equal(got_v, ktraj.box_filter_convolve_plain(path, r))
+    assert got_c.shape == got_v.shape == path.shape
+
+
 def test_corner_kernel_matches_plain(dev):
     from video_stab_tpu_torch.kernels import features as kfeat
     gray = torch.from_numpy(_textured(75, 133, 1)).to(dev)
@@ -90,3 +131,9 @@ def test_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError):
         kfeat.corner_response_cuda(torch.zeros((8, 8), dtype=torch.float64,
                                                device=dev))
+    with pytest.raises(ValueError):
+        kwarp.warp_homography_u8(img, torch.eye(3, device=dev))
+    from video_stab_tpu_torch.kernels import traj as ktraj
+    with pytest.raises(ValueError):
+        ktraj.box_filter_centered(torch.zeros((30, 3), dtype=torch.float64,
+                                              device=dev), 5)

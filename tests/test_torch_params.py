@@ -85,6 +85,9 @@ def test_port_never_imports_jax():
         "import video_stab_tpu_torch.kernels.warp\n"
         "import video_stab_tpu_torch.kernels.features\n"
         "import video_stab_tpu_torch.kernels.enhance\n"
+        "import video_stab_tpu_torch.kernels.traj\n"
+        "import video_stab_tpu_torch.motion.homography\n"
+        "import video_stab_tpu_torch.offline\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'jaxlib',\n"
         "                                            'video_stab_tpu.'))\n"
@@ -117,11 +120,16 @@ def test_use_cuda_without_a_device_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    {"motion_model": "homography"}, {"smoothing_method": "kalman"},
+    {"motion_model": "homography", "smoothing_method": "kalman"},
+    {"smoothing_method": "kalman"},
     {"drone_high_freq_mode": True}, {"border_size": 10},
     {"enable_virtual_canvas": True}, {"feature_detector": "fast"},
-    {"deep_stabilization": True}])
+    {"deep_stabilization": True},
+    {"motion_model": "homography", "border_size": 10},
+    {"motion_model": "homography", "drone_high_freq_mode": True}])
 def test_unported_stabilizer_branches_raise(kw):
+    """The homography model runs with box smoothing and no borders; with
+    another smoother, borders or the drone chain it still raises."""
     from video_stab_tpu_torch.core.stabilizer import Stabilizer
     with pytest.raises(NotImplementedError, match="queue 1 item"):
         Stabilizer(tparams.StabilizerParams(**kw),

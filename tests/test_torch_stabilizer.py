@@ -35,15 +35,19 @@ CPU = ModeParams(use_cuda=False)
 
 class JaxDraws:
     """RANSAC draws from the JAX package's stream key chain: each analyze
-    step splits the key and draws randint(sub, (K, 2), 0, max(n_valid, 1))."""
+    step splits the key and draws randint(sub, (K, width), 0,
+    max(n_valid, 1)); width 2 for the similarity model, 4 for the
+    homography model."""
 
-    def __init__(self, key, n_hypotheses):
+    def __init__(self, key, n_hypotheses, width=2):
         self.key = jnp.asarray(key)
         self.k = n_hypotheses
+        self.width = width
 
     def __call__(self, n_valid):
         self.key, sub = jax.random.split(self.key)
-        d = jax.random.randint(sub, (self.k, 2), 0, max(int(n_valid), 1))
+        d = jax.random.randint(sub, (self.k, self.width), 0,
+                               max(int(n_valid), 1))
         return torch.from_numpy(np.array(d, np.int64))
 
 

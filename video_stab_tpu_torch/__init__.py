@@ -9,8 +9,13 @@ The package mirrors ``video_stab_tpu``'s layout and names (``ops/``,
 Every function takes and returns tensors on one device. The streaming
 wrappers (``core.stabilizer.Stabilizer``, ``core.chain.ProcessingChain``)
 pick that device once, from ``ModeParams.use_cuda`` (:func:`pick_device`).
-The three hand-written CUDA kernels (``csrc/``) run on CUDA tensors; a CPU
-tensor takes each kernel's plain PyTorch version (``kernels/``).
+The hand-written CUDA kernels (``csrc/``: K1 to K5b, one for each Pallas
+kernel of the JAX package) run on CUDA tensors; a CPU tensor takes each
+kernel's plain PyTorch version (``kernels/``).
+
+Entry points: ``core.stabilizer.Stabilizer`` (streaming, similarity or
+homography model), ``core.chain.ProcessingChain`` (the fused serving
+chain) and ``offline.stabilize_clip`` (whole-clip stabilization).
 
 Importing the package turns TF32 off for matmuls and cuDNN convolutions:
 the filters, resizes and LK's normal equations need full float32.

@@ -2,20 +2,26 @@
 ``video_stab_tpu/core/stabilizer.py``.
 
 Per frame:
-  analyze:  gray + resize -> sparse pyramidal LK -> RANSAC similarity ->
-            push transform and path rings -> re-detect GFTT features every
-            ``redetect_interval``-th frame
-  emit:     box-smooth the path at the emit cursor -> motion-intent
-            correction scaling -> rigid matrix (composed with the fused
-            chain's roll rotation) -> one warp of the queued frame (K1)
+  analyze:  gray + resize -> sparse pyramidal LK -> RANSAC similarity (or
+            homography, conjugated to full resolution and mapped to sl(3))
+            -> push transform and path rings -> re-detect GFTT features
+            every ``redetect_interval``-th frame
+  emit:     box-smooth the path at the emit cursor -> similarity: motion-
+            intent correction scaling -> rigid matrix (composed with the
+            fused chain's roll rotation) -> one warp of the queued frame
+            (K1); homography: exp of the sl(3) correction -> one projective
+            warp (K2)
 
-The slice ports the similarity / box / black-border / GFTT path. The other
-branches raise ``NotImplementedError`` naming their ROADMAP queue-1 item.
+The port covers the similarity and homography models with box smoothing,
+black borders and GFTT. The other branches raise ``NotImplementedError``
+naming their ROADMAP queue-1 item.
 
 Steps are plain functions over an explicit ``StabilizerState`` of device
 tensors. The wrappers' steady state reads nothing back from the device:
 readiness and the re-detect cadence come from host-side frame counters
 that mirror the device's, and every index into a ring is a device tensor.
+The homography model adds the reads of its ``eigh`` and ``matrix_exp``
+(``motion/homography.py``).
 """
 
 from __future__ import annotations
@@ -43,6 +49,11 @@ from video_stab_tpu_torch.motion.filters import (
     ring_get,
     ring_push,
 )
+from video_stab_tpu_torch.motion.homography import (
+    estimate_homography_ransac,
+    exp_homography,
+    log_homography,
+)
 from video_stab_tpu_torch.motion.intent import (
     analyze_motion_intent,
     intent_correction_scale,
@@ -55,11 +66,16 @@ from video_stab_tpu_torch.ops.warp import (
     BORDER_CONSTANT,
     rotation_matrix_2d,
     similarity_matrix,
+    warp_perspective_fast,
 )
 
 WARP_MAX_SHIFT = 128    # translation envelope (px) of the JAX emit warp
+# Projective allowance |g|, |h| of the JAX projective warp's static envelope
+# (video_stab_tpu/pallas/warp.py PROJ_BUDGET_DEFAULT).
+PROJ_BUDGET_DEFAULT = 5e-6
 
-# (K, 2) RANSAC draws for a step given its valid-point count, or None.
+# RANSAC draws for a step given its valid-point count, or None: (K, 2) for
+# the similarity model, (K, 4) for the homography model.
 RansacDraws = Optional[Callable[[torch.Tensor], torch.Tensor]]
 
 
@@ -67,8 +83,8 @@ def check_supported(params: StabilizerParams) -> None:
     """Raise NotImplementedError for the branches this slice does not port,
     naming the ROADMAP queue-1 item that ports them."""
     todo = []
-    if params.motion_model != "similarity":
-        todo.append("motion_model=homography (queue 1 item 9)")
+    if params.motion_model not in ("similarity", "homography"):
+        todo.append(f"motion_model={params.motion_model} (unknown)")
     if params.deep_stabilization:
         todo.append("deep_stabilization (queue 1 item 9)")
     if params.drone_high_freq_mode:
@@ -165,6 +181,21 @@ def stabilizer_init_step_fn(params: StabilizerParams, state: StabilizerState,
                           **_queue_frame(state, frame_u8, aux_roll))
 
 
+def to_full_resolution(params: StabilizerParams, frame_shape,
+                       h_mat: torch.Tensor) -> torch.Tensor:
+    """S H S^-1 with S = diag(sx, sy, 1), analysis -> full resolution.
+
+    Written elementwise, (s_i * h_ij) * (1 / s_j) with each scale rounded
+    to float32: the same values as the JAX package's two matmuls with the
+    diagonal matrices (their other terms are exact zeros), and no
+    host-to-device copy of S."""
+    sxf = frame_shape[1] / params.analysis_width
+    syf = frame_shape[0] / params.analysis_height
+    rows = torch.stack([h_mat[0] * sxf, h_mat[1] * syf, h_mat[2]])
+    return torch.stack([rows[:, 0] * (1.0 / sxf), rows[:, 1] * (1.0 / syf),
+                        rows[:, 2]], dim=1)
+
+
 def stabilizer_analyze_step_fn(params: StabilizerParams,
                                state: StabilizerState,
                                frame_u8: torch.Tensor, aux_roll=None,
@@ -190,11 +221,19 @@ def stabilizer_analyze_step_fn(params: StabilizerParams,
     valid = state.prev_mask & status
 
     draws = None if ransac_draws is None else ransac_draws(valid.sum())
-    m, est_ok, inliers = estimate_similarity_ransac(
-        state.prev_pts, curr_pts, valid, generator=state.key,
-        threshold=params.ransac_threshold,
-        n_hypotheses=params.ransac_hypotheses, draws=draws)
-    raw = torch.stack([m[0, 2], m[1, 2], torch.atan2(m[1, 0], m[0, 0])])
+    if params.motion_model == "homography":
+        h_mat, est_ok, inliers = estimate_homography_ransac(
+            state.prev_pts, curr_pts, valid, generator=state.key,
+            threshold=params.ransac_threshold,
+            n_hypotheses=params.ransac_hypotheses, draws=draws)
+        raw = log_homography(
+            to_full_resolution(params, frame_u8.shape, h_mat)).reshape(9)
+    else:
+        m, est_ok, inliers = estimate_similarity_ransac(
+            state.prev_pts, curr_pts, valid, generator=state.key,
+            threshold=params.ransac_threshold,
+            n_hypotheses=params.ransac_hypotheses, draws=draws)
+        raw = torch.stack([m[0, 2], m[1, 2], torch.atan2(m[1, 0], m[0, 0])])
 
     # Push raw transform + cumulative path into the rings.
     n = state.n_path
@@ -251,8 +290,9 @@ def stabilizer_emit_step_fn(params: StabilizerParams, state: StabilizerState
     dev = state.trans_ring.device
     e = state.emit_idx
     has_transform = e < state.n_path
-    zeros3 = torch.zeros(3, dtype=torch.float32, device=dev)
-    raw = torch.where(has_transform, ring_get(state.trans_ring, e), zeros3)
+    zeros = torch.zeros(state.trans_ring.shape[1], dtype=torch.float32,
+                        device=dev)
+    raw = torch.where(has_transform, ring_get(state.trans_ring, e), zeros)
     e_path = torch.minimum(e, state.n_path - 1)
     path_e = ring_get(state.path_ring, e_path)
 
@@ -264,11 +304,18 @@ def stabilizer_emit_step_fn(params: StabilizerParams, state: StabilizerState
                                r_max)
     diff = smoothed - path_e
 
+    q = state.frame_ring.shape[0]
+    slot = torch.remainder(e, q).to(torch.int64).reshape(1)
+    frame_u8 = state.frame_ring.index_select(0, slot)[0]
+    if params.motion_model == "homography":
+        return _emit_homography(params, state, frame_u8, has_transform,
+                                torch.where(has_transform, raw + diff, zeros))
+
     # Motion-intent correction scaling.
     intent = analyze_motion_intent(state.trans_ring, state.n_path, raw, e)
     diff = diff * intent_correction_scale(intent, raw, e)
 
-    t_smooth = torch.where(has_transform, raw + diff, zeros3)
+    t_smooth = torch.where(has_transform, raw + diff, zeros)
     dx, dy = t_smooth[0], t_smooth[1]
     da = torch.zeros_like(t_smooth[2]) if params.horizon_lock \
         else t_smooth[2]
@@ -286,9 +333,6 @@ def stabilizer_emit_step_fn(params: StabilizerParams, state: StabilizerState
         (da.abs() > env_rad)
         | (torch.maximum(dx.abs(), dy.abs()) > WARP_MAX_SHIFT))
 
-    q = state.frame_ring.shape[0]
-    slot = torch.remainder(e, q).to(torch.int64).reshape(1)
-    frame_u8 = state.frame_ring.index_select(0, slot)[0]
     h, w = frame_u8.shape[0], frame_u8.shape[1]
     m_use = t_mat
     if params.aux_rotation_deg > 0.0:
@@ -305,6 +349,32 @@ def stabilizer_emit_step_fn(params: StabilizerParams, state: StabilizerState
 
     new_state = state._replace(
         emit_idx=e + 1,
+        envelope_exceeded=state.envelope_exceeded + exceeded.to(torch.int32))
+    return new_state, out_u8
+
+
+def _emit_homography(params: StabilizerParams, state: StabilizerState,
+                     frame_u8: torch.Tensor, has_transform: torch.Tensor,
+                     t_smooth: torch.Tensor
+                     ) -> tuple[StabilizerState, torch.Tensor]:
+    """The homography emit: sl(3) correction -> SL(3) -> one projective warp
+    (K2). Motion-intent scaling is a similarity-space heuristic and is
+    skipped, as in the JAX package."""
+    h_corr = exp_homography(t_smooth.reshape(3, 3))
+    # Envelope observability: the JAX projective warp clamps outside its
+    # static envelope (rotation/shear slope, shift, projective budget); the
+    # count stays comparable although K2 is exact.
+    s_env = abs(math.sin(math.radians(params.warp_envelope_deg)))
+    exceeded = has_transform & (
+        (torch.maximum(h_corr[0, 2].abs(), h_corr[1, 2].abs())
+         > WARP_MAX_SHIFT)
+        | (h_corr[0, 1].abs() > s_env) | (h_corr[1, 0].abs() > s_env)
+        | (h_corr[2, 0].abs() > PROJ_BUDGET_DEFAULT)
+        | (h_corr[2, 1].abs() > PROJ_BUDGET_DEFAULT))
+    out_u8 = warp_perspective_fast(frame_u8, h_corr,
+                                   border_mode=BORDER_CONSTANT)
+    new_state = state._replace(
+        emit_idx=state.emit_idx + 1,
         envelope_exceeded=state.envelope_exceeded + exceeded.to(torch.int32))
     return new_state, out_u8
 
@@ -377,7 +447,8 @@ class Stabilizer:
     The device is picked once, from ``mode.use_cuda`` (default
     ``ModeParams()``: CUDA, raising without one). ``ransac_draws``: an
     optional callable given a step's valid-point count (a 0-d device
-    tensor) that returns the (K, 2) RANSAC draws for that step — the hook
+    tensor) that returns the RANSAC draws for that step, (K, 2) for the
+    similarity model and (K, 4) for the homography model — the hook
     through which parity tests feed the JAX package's own draws. Without
     it the draws come from the state's generator (``params.seed``)."""
 
@@ -415,8 +486,10 @@ class Stabilizer:
         return self._frames_in - self._emitted
 
     def stabilize_device(self, frame) -> Optional[torch.Tensor]:
-        """One step per frame, no device->host reads: the stabilized frame
-        as a device tensor (None during warm-up)."""
+        """One step per frame, no device->host reads of its own (the GFTT
+        NMS flag and the homography model's ``eigh`` / ``matrix_exp``
+        aside): the stabilized frame as a device tensor (None during
+        warm-up)."""
         frame = as_device_frame(frame, self.device)
         self._ensure_state(frame)
         if self._frames_in == 0:

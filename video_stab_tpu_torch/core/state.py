@@ -32,16 +32,16 @@ class StabilizerState(NamedTuple):
     prev_gray: torch.Tensor        # (Ha, Wa) f32 previous analysis gray
     prev_pts: torch.Tensor         # (N, 2) f32 tracked feature slots
     prev_mask: torch.Tensor        # (N,) bool feature slot validity
-    trans_ring: torch.Tensor       # (PATH_RING, 3) raw per-frame transforms
-    path_ring: torch.Tensor        # (PATH_RING, 3) cumulative path
+    trans_ring: torch.Tensor       # (PATH_RING, C) raw per-frame transforms
+    path_ring: torch.Tensor        # (PATH_RING, C) cumulative path
     n_path: torch.Tensor           # int32 transforms pushed
     frame_ring: torch.Tensor       # (Q, H, W, 3) uint8 look-ahead queue
     n_frames: torch.Tensor         # int32 frames pushed (incl. first)
     emit_idx: torch.Tensor         # int32 next frame index to emit
     aux_roll_ring: torch.Tensor    # (Q,) f32 degrees (fused-chain roll)
-    kalman_x: torch.Tensor         # (2, 3) f32
-    kalman_p: torch.Tensor         # (2, 2, 3) f32
-    butter_state: torch.Tensor     # (4, 3) f32
+    kalman_x: torch.Tensor         # (2, C) f32
+    kalman_p: torch.Tensor         # (2, 2, C) f32
+    butter_state: torch.Tensor     # (4, C) f32
     hf: Any                        # placeholder until motion/hf.py is ported
     fade_history: torch.Tensor     # (1, 1, 3) f32 (fade border not ported)
     fade_count: torch.Tensor       # int32
@@ -52,6 +52,12 @@ class StabilizerState(NamedTuple):
     envelope_exceeded: torch.Tensor   # int32
     key: torch.Generator           # the stream's RANSAC generator
     deepstab: Any = ()
+
+
+def motion_channels(params) -> int:
+    """Trajectory channel count C: 3 for the similarity model (dx, dy, da),
+    9 for the homography model (the flattened sl(3) log-homography)."""
+    return 9 if params.motion_model == "homography" else 3
 
 
 def _generator(seed: int, device: torch.device) -> torch.Generator:
@@ -66,7 +72,7 @@ def stabilizer_state_init(params, height: int, width: int,
     ha, wa = params.analysis_height, params.analysis_width
     n = params.max_corners
     q = params.effective_radius + 1
-    c = 3
+    c = motion_channels(params)
 
     def zeros(*shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=device)

@@ -1,13 +1,21 @@
-// K1: affine warp, u8 HWC -> u8 HWC, exact bilinear (cv2.warpAffine).
+// K1: affine warp and K2: projective warp, u8 HWC -> u8 HWC, exact
+// bilinear (cv2.warpAffine / cv2.warpPerspective).
 //
-// Replaces the Pallas kernel video_stab_tpu/pallas/warp.py:_warp_kernel
-// (driven by _warp_u8_impl through warp_affine_u8).
+// Replace the Pallas kernel video_stab_tpu/pallas/warp.py:_warp_kernel,
+// driven by _warp_u8_impl through warp_affine_u8 (K1) and through
+// warp_homography_u8 with projective=True (K2).
 //
 // dst(x, y) = src(M^-1 (x, y)) with bilinear sampling in float32, rounded
-// half to even (rintf) and clipped to [0, 255]. M^-1 is read from a device
-// pointer, so a frame's matrix never crosses to the host. Border modes are
-// the index maps of video_stab_tpu/ops/warp.py:_map_index, per tap; the
-// constant mode substitutes border_value for each tap outside the source.
+// half to even (rintf) and clipped to [0, 255]. M^-1 (6 values, or 9 for
+// K2) is read from a device pointer, so a frame's matrix never crosses to
+// the host. Border modes are the index maps of
+// video_stab_tpu/ops/warp.py:_map_index, per tap; the constant mode
+// substitutes border_value for each tap outside the source.
+//
+// K2 follows the JAX CPU path (video_stab_tpu/ops/warp.py:warp_perspective),
+// not the Pallas kernel: the inverse is not normalized by h22, the
+// denominator (g*x + h*y) + i is set to 1e-9 where its magnitude is below
+// 1e-9, and sx, sy are IEEE divides (__fdiv_rn), not a reciprocal multiply.
 //
 // Bound on the H100: bytes. A 1080p x3 frame reads ~6.2 MB (each source
 // byte about once, the neighbouring taps come from L1/L2) and writes
@@ -15,7 +23,8 @@
 // pixel (all channels), 32x8 blocks, so a warp's reads and writes walk
 // neighbouring addresses. The TPU kernel's envelope, tier ladder, tile
 // pick and scalar prefetch exist for the TPU's DMA and VMEM and have no
-// counterpart here: any affine map is exact.
+// counterpart here: any affine or projective map is exact. K2 adds two
+// divides per pixel, still far below the byte bound.
 //
 // The coordinate and blend arithmetic uses __fmul_rn/__fadd_rn, which are
 // never contracted into FMAs, so the result is the same float32 value the
@@ -65,21 +74,30 @@ __device__ __forceinline__ int map_index(int i, int n, int mode, bool* valid) {
   }
 }
 
-template <int C>
-__global__ void warp_affine_u8_kernel(const uint8_t* __restrict__ src, int h,
-                                      int w, uint8_t* __restrict__ dst,
-                                      int oh, int ow,
-                                      const float* __restrict__ minv,
-                                      int mode, float border_value) {
+// (p * x + q * y) + r, each step rounded, never contracted.
+__device__ __forceinline__ float lin(float p, float q, float r, float x,
+                                     float y) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(p, x), __fmul_rn(q, y)), r);
+}
+
+template <int C, bool kProjective>
+__global__ void warp_u8_kernel(const uint8_t* __restrict__ src, int h, int w,
+                               uint8_t* __restrict__ dst, int oh, int ow,
+                               const float* __restrict__ minv, int mode,
+                               float border_value) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= ow || y >= oh) return;
-  const float a = minv[0], b = minv[1], c = minv[2];
-  const float d = minv[3], e = minv[4], f = minv[5];
   const float xf = static_cast<float>(x);
   const float yf = static_cast<float>(y);
-  const float sx = __fadd_rn(__fadd_rn(__fmul_rn(a, xf), __fmul_rn(b, yf)), c);
-  const float sy = __fadd_rn(__fadd_rn(__fmul_rn(d, xf), __fmul_rn(e, yf)), f);
+  float sx = lin(minv[0], minv[1], minv[2], xf, yf);
+  float sy = lin(minv[3], minv[4], minv[5], xf, yf);
+  if (kProjective) {
+    float den = lin(minv[6], minv[7], minv[8], xf, yf);
+    if (fabsf(den) < 1.0e-9f) den = 1.0e-9f;
+    sx = __fdiv_rn(sx, den);
+    sy = __fdiv_rn(sy, den);
+  }
   // Clamp before the int conversion so x0 + 1 cannot overflow; such
   // coordinates are far outside any source either way.
   const float x0f = fminf(fmaxf(floorf(sx), -1.0e9f), 1.0e9f);
@@ -114,12 +132,10 @@ __global__ void warp_affine_u8_kernel(const uint8_t* __restrict__ src, int h,
   }
 }
 
-}  // namespace
-
-// Returns the cudaError_t of the launch (0 on success).
-extern "C" int vs_warp_affine_u8(const void* src, int h, int w, int c,
-                                 void* dst, int oh, int ow, const void* minv,
-                                 int mode, float border_value, void* stream) {
+template <bool kProjective>
+int launch_warp(const void* src, int h, int w, int c, void* dst, int oh,
+                int ow, const void* minv, int mode, float border_value,
+                void* stream) {
   const dim3 block(32, 8);
   const dim3 grid((ow + block.x - 1) / block.x, (oh + block.y - 1) / block.y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -127,13 +143,33 @@ extern "C" int vs_warp_affine_u8(const void* src, int h, int w, int c,
   auto* out = static_cast<uint8_t*>(dst);
   const auto* m = static_cast<const float*>(minv);
   if (c == 1) {
-    warp_affine_u8_kernel<1><<<grid, block, 0, s>>>(in, h, w, out, oh, ow, m,
-                                                     mode, border_value);
+    warp_u8_kernel<1, kProjective><<<grid, block, 0, s>>>(
+        in, h, w, out, oh, ow, m, mode, border_value);
   } else if (c == 3) {
-    warp_affine_u8_kernel<3><<<grid, block, 0, s>>>(in, h, w, out, oh, ow, m,
-                                                     mode, border_value);
+    warp_u8_kernel<3, kProjective><<<grid, block, 0, s>>>(
+        in, h, w, out, oh, ow, m, mode, border_value);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Each returns the cudaError_t of the launch (0 on success). minv holds 6
+// floats (a b c d e f) for the affine warp, 9 (row-major 3x3) for the
+// projective one.
+extern "C" int vs_warp_affine_u8(const void* src, int h, int w, int c,
+                                 void* dst, int oh, int ow, const void* minv,
+                                 int mode, float border_value, void* stream) {
+  return launch_warp<false>(src, h, w, c, dst, oh, ow, minv, mode,
+                            border_value, stream);
+}
+
+extern "C" int vs_warp_homography_u8(const void* src, int h, int w, int c,
+                                     void* dst, int oh, int ow,
+                                     const void* minv, int mode,
+                                     float border_value, void* stream) {
+  return launch_warp<true>(src, h, w, c, dst, oh, ow, minv, mode,
+                           border_value, stream);
 }

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-All sources under ``csrc/`` are compiled by ONE ``nvcc -shared`` call for
-``sm_90a`` into a shared library with a plain C interface, loaded with
+Each source under ``csrc/`` is compiled for ``sm_90a`` by its own
+``nvcc -c``, all started together, and the objects are linked by one
+``nvcc -shared`` into a library with a plain C interface, loaded with
 ``ctypes``. No source includes PyTorch's headers, which keeps the build to
 seconds; tensors cross as ``data_ptr()`` integers and the launch goes on
 PyTorch's current stream. The library's file name carries a hash of the
@@ -22,11 +23,11 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("warp.cu", "features.cu", "enhance.cu")
+SOURCES = ("warp.cu", "features.cu", "enhance.cu", "traj.cu")
 # --fmad=false: no multiply-add contraction anywhere, so every kernel's
 # float32 arithmetic is the same as its plain PyTorch version's.
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+              "--fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,12 +35,15 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # src, h, w, c, dst, oh, ow, minv, mode, border_value, stream
     "vs_warp_affine_u8": (_P, _I, _I, _I, _P, _I, _I, _P, _I, _F, _P),
+    "vs_warp_homography_u8": (_P, _I, _I, _I, _P, _I, _I, _P, _I, _F, _P),
     # gray, h, w, scale, resp, peak, stream
     "vs_corner_response": (_P, _I, _I, _F, _P, _P, _P),
     # src, dst, gray, n_pix, wb, do_cb, contrast, brightness, do_gamma,
     # gamma, stream
     "vs_enhance_u8": (_P, _P, _P, ctypes.c_longlong, _P, _I, _F, _F, _I, _F,
                       _P),
+    # x, n, c, offset, window, pad, centered, r, out, stream
+    "vs_box_window": (_P, _I, _I, _I, _I, _P, _I, _I, _P, _P),
 }
 
 _lock = threading.Lock()
@@ -71,22 +75,38 @@ def _digest() -> str:
 
 def build() -> Path:
     """Compile the sources unless a library for them exists; return its path.
-    The compiler's output (with ptxas's register and spill report) is kept
+    The compilers' output (with ptxas's register and spill report) is kept
     beside the library as ``<name>.log``."""
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     lib = out_dir / f"libvstab_torch_kernels_{_digest()}.so"
     if lib.exists():
         return lib
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    lib.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
+    stem = f"{lib.stem}.{os.getpid()}"
+    objs = [out_dir / f"{stem}.{Path(s).stem}.o" for s in SOURCES]
+    cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+            for s, o in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    tmp = lib.with_name(f"{stem}.tmp")
+    link = [_nvcc(), "-gencode=arch=compute_90a,code=sm_90a", "-shared",
+            "-o", str(tmp), *map(str, objs)]
+    log = [" ".join(c) + "\n" + o for c, o in zip(cmds, outs)]
+    failed = [c for c, p in zip(cmds, procs) if p.returncode != 0]
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True,
+                              check=False)
+        log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(link)
+    lib.with_suffix(".log").write_text("\n".join(log))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed: {' '.join(failed[0])}\n"
+                           + "\n".join(log))
     os.replace(tmp, lib)
     return lib
 

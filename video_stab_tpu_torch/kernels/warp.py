@@ -1,10 +1,15 @@
-"""K1: the affine warp, u8 HWC -> u8 HWC (csrc/warp.cu).
+"""K1: the affine warp and K2: the projective warp, u8 HWC -> u8 HWC
+(csrc/warp.cu).
 
-Counterpart of ``video_stab_tpu/pallas/warp.py:warp_affine_u8``. The
-kernel reads the inverse matrix from device memory, so a frame's matrix
-never crosses to the host. The TPU kernel's envelope, tier ladder and tile
-pick have no counterpart: the CUDA kernel is exact bilinear for any affine
-map, where the JAX path clamps outside its static envelope.
+Counterparts of ``video_stab_tpu/pallas/warp.py:warp_affine_u8`` and
+``warp_homography_u8``. The kernels read the inverse matrix from device
+memory, so a frame's matrix never crosses to the host. The TPU kernel's
+envelope, tier ladder and tile pick have no counterpart: the CUDA kernels
+are exact bilinear for any affine or projective map, where the JAX path
+clamps outside its static envelope. K2 computes what the JAX CPU path
+(``ops/warp.py:warp_perspective``) computes, rounded and clipped to u8.
+
+``LAUNCHES`` counts K1 launches, ``HOMOGRAPHY_LAUNCHES`` K2 launches.
 """
 
 from __future__ import annotations
@@ -18,10 +23,13 @@ from video_stab_tpu_torch.ops.warp import (
     BORDER_CONSTANT,
     affine_coords,
     invert_affine,
+    invert_homography,
+    perspective_coords,
     sample_bilinear,
 )
 
-LAUNCHES = 0    # kernel launches since import (or the last reset)
+LAUNCHES = 0               # K1 launches since import (or the last reset)
+HOMOGRAPHY_LAUNCHES = 0    # K2 launches since import (or the last reset)
 
 
 def warp_affine_u8(img: torch.Tensor, m: torch.Tensor,
@@ -59,27 +67,91 @@ def warp_affine_u8_plain(img: torch.Tensor, minv: torch.Tensor, out_h: int,
     return torch.clamp(torch.round(out), 0.0, 255.0).to(torch.uint8)
 
 
+def _launch(fn_name: str, n_minv: int, img: torch.Tensor,
+            minv: torch.Tensor, out_h: int, out_w: int, border_mode: int,
+            border_value: float) -> torch.Tensor:
+    """Check the inputs, allocate the output and launch one warp kernel on
+    the current stream."""
+    name = fn_name.removeprefix("vs_")
+    _lib.require_cuda(img, f"{name} img", torch.uint8, (2, 3))
+    _lib.require_cuda(minv, f"{name} minv", torch.float32, (1,))
+    ch = 1 if img.dim() == 2 else img.shape[2]
+    if ch not in (1, 3) or minv.numel() != n_minv \
+            or minv.device != img.device:
+        raise ValueError(f"{name}: bad shapes img {tuple(img.shape)} "
+                         f"minv {tuple(minv.shape)} on {minv.device}")
+    if border_mode not in range(5):
+        raise ValueError(f"{name}: unknown border mode {border_mode}")
+    h, w = img.shape[:2]
+    shape = (out_h, out_w) if img.dim() == 2 else (out_h, out_w, ch)
+    out = torch.empty(shape, dtype=torch.uint8, device=img.device)
+    rc = getattr(_lib.library(), fn_name)(
+        img.data_ptr(), h, w, ch, out.data_ptr(), out_h, out_w,
+        minv.data_ptr(), border_mode, float(border_value),
+        _lib.stream_handle(img.device))
+    _lib.check(rc, name)
+    return out
+
+
 def warp_affine_u8_cuda(img: torch.Tensor, minv: torch.Tensor, out_h: int,
                         out_w: int, border_mode: int = BORDER_CONSTANT,
                         border_value: float = 0.0) -> torch.Tensor:
     """Launch K1 on the current stream. minv: (6,) float32 inverse map on
     img's device."""
     global LAUNCHES
-    _lib.require_cuda(img, "warp_affine_u8 img", torch.uint8, (2, 3))
-    _lib.require_cuda(minv, "warp_affine_u8 minv", torch.float32, (1,))
-    ch = 1 if img.dim() == 2 else img.shape[2]
-    if ch not in (1, 3) or minv.numel() != 6 or minv.device != img.device:
-        raise ValueError(f"warp_affine_u8: bad shapes img {tuple(img.shape)} "
-                         f"minv {tuple(minv.shape)} on {minv.device}")
-    if border_mode not in range(5):
-        raise ValueError(f"warp_affine_u8: unknown border mode {border_mode}")
-    h, w = img.shape[:2]
-    shape = (out_h, out_w) if img.dim() == 2 else (out_h, out_w, ch)
-    out = torch.empty(shape, dtype=torch.uint8, device=img.device)
-    rc = _lib.library().vs_warp_affine_u8(
-        img.data_ptr(), h, w, ch, out.data_ptr(), out_h, out_w,
-        minv.data_ptr(), border_mode, float(border_value),
-        _lib.stream_handle(img.device))
-    _lib.check(rc, "warp_affine_u8")
+    out = _launch("vs_warp_affine_u8", 6, img, minv, out_h, out_w,
+                  border_mode, border_value)
     LAUNCHES += 1
+    return out
+
+
+def warp_homography_u8(img: torch.Tensor, h_mat: torch.Tensor,
+                       out_h: Optional[int] = None,
+                       out_w: Optional[int] = None,
+                       border_mode: int = BORDER_CONSTANT,
+                       border_value: float = 0.0,
+                       inverse_map: bool = False) -> torch.Tensor:
+    """Projective warp of a u8 (H, W) or (H, W, C) image, C in {1, 3}:
+    dst(x, y) = src(H^-1 (x, y)), bilinear, rounded half to even.
+
+    h_mat: (3, 3) forward homography (the inverse when ``inverse_map``), a
+    float tensor on img's device; the inverse is taken by torch ops there
+    (adjugate / determinant, no host read). A CUDA image launches K2; a CPU
+    image takes the plain version."""
+    out_h = out_h if out_h is not None else img.shape[0]
+    out_w = out_w if out_w is not None else img.shape[1]
+    h_mat = h_mat.to(torch.float32)
+    hinv = (h_mat if inverse_map else invert_homography(h_mat)).reshape(9)
+    if img.is_cuda:
+        return warp_homography_u8_cuda(img, hinv.contiguous(), out_h, out_w,
+                                       border_mode, border_value)
+    if img.device.type != "cpu":
+        raise ValueError(f"warp_homography_u8: unsupported device "
+                         f"{img.device}")
+    return warp_homography_u8_plain(img, hinv, out_h, out_w, border_mode,
+                                    border_value)
+
+
+def warp_homography_u8_plain(img: torch.Tensor, hinv: torch.Tensor,
+                             out_h: int, out_w: int,
+                             border_mode: int = BORDER_CONSTANT,
+                             border_value: float = 0.0) -> torch.Tensor:
+    """Plain PyTorch version of K2 (any device): the gather warp of
+    ``ops/warp.py:warp_perspective`` with the same float32 arithmetic, then
+    round half to even and clip. hinv: the (9,) row-major inverse map."""
+    sx, sy = perspective_coords(hinv.reshape(3, 3), out_h, out_w)
+    out = sample_bilinear(img, sx, sy, border_mode, border_value)
+    return torch.clamp(torch.round(out), 0.0, 255.0).to(torch.uint8)
+
+
+def warp_homography_u8_cuda(img: torch.Tensor, hinv: torch.Tensor,
+                            out_h: int, out_w: int,
+                            border_mode: int = BORDER_CONSTANT,
+                            border_value: float = 0.0) -> torch.Tensor:
+    """Launch K2 on the current stream. hinv: (9,) float32 row-major inverse
+    homography on img's device."""
+    global HOMOGRAPHY_LAUNCHES
+    out = _launch("vs_warp_homography_u8", 9, img, hinv, out_h, out_w,
+                  border_mode, border_value)
+    HOMOGRAPHY_LAUNCHES += 1
     return out

@@ -59,10 +59,12 @@ def _params_to_matrix(theta: torch.Tensor) -> torch.Tensor:
 
 
 def ransac_draws(generator: torch.Generator, n_hypotheses: int,
-                 n_valid: torch.Tensor) -> torch.Tensor:
-    """(K, 2) uniform draws in [0, max(n_valid, 1)) on the generator's
-    device: floor(U * max(n_valid, 1)), no host read."""
-    u = torch.rand((n_hypotheses, 2), generator=generator,
+                 n_valid: torch.Tensor, width: int = 2) -> torch.Tensor:
+    """(K, width) uniform draws in [0, max(n_valid, 1)) on the generator's
+    device: floor(U * max(n_valid, 1)), no host read. ``width`` is the
+    minimal sample: 2 points for the similarity model, 4 for the
+    homography model."""
+    u = torch.rand((n_hypotheses, width), generator=generator,
                    device=n_valid.device)
     hi = torch.clamp(n_valid, min=1).to(torch.float32)
     return torch.floor(u * hi).to(torch.int64).clamp(max=hi.to(torch.int64) - 1)

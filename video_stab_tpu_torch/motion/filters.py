@@ -47,8 +47,11 @@ def adaptive_radius(ring: torch.Tensor, n_path: torch.Tensor,
                     default_radius: int) -> torch.Tensor:
     """calculateAdaptiveRadius: variance of the last <= 20 path samples,
     rotation variance scaled by 1000, radius = int(clamp(2*sqrt(var), 5,
-    25)); ``default_radius`` when fewer than 10 samples. (3-channel
-    similarity path.)"""
+    25)); ``default_radius`` when fewer than 10 samples.
+
+    A 3-channel ring holds (dx, dy, da). A 9-channel ring holds the
+    row-major sl(3) log-homography: translation is read from [2] and [5],
+    rotation from the antisymmetric part of the upper 2x2, (l01 - l10)/2."""
     window = 20
     offs = torch.arange(window, device=ring.device)
     start = torch.clamp(n_path - window, min=0)
@@ -59,7 +62,13 @@ def adaptive_radius(ring: torch.Tensor, n_path: torch.Tensor,
     count = torch.clamp(w.sum(), min=1.0)
     mean = (vals * w).sum(dim=0) / count
     var = (((vals - mean) ** 2) * w).sum(dim=0) / count
-    total = torch.sqrt(var[0] + var[1] + var[2] * 1000.0)
+    if ring.shape[1] == 9:
+        rot = (vals[:, 1] - vals[:, 3]) * 0.5
+        rot_mean = (rot * w[:, 0]).sum() / count
+        rot_var = (((rot - rot_mean) ** 2) * w[:, 0]).sum() / count
+        total = torch.sqrt(var[2] + var[5] + rot_var * 1000.0)
+    else:
+        total = torch.sqrt(var[0] + var[1] + var[2] * 1000.0)
     rad = torch.clamp(total * 2.0, 5.0, 25.0).to(torch.int32)
     return torch.where(n_path < 10,
                        torch.full_like(rad, default_radius), rad)

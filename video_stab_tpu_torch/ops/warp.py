@@ -1,10 +1,12 @@
-"""Affine warping with OpenCV border-mode semantics.
+"""Affine and projective warping with OpenCV border-mode semantics.
 
-Counterpart of the slice's part of ``video_stab_tpu/ops/warp.py``.
+Counterpart of the port's part of ``video_stab_tpu/ops/warp.py``.
 ``warp_affine(img, M)`` computes dst(x, y) = src(M^{-1} [x, y, 1]) with
-bilinear sampling, matching cv2.warpAffine without WARP_INVERSE_MAP.
-``warp_affine_fast`` is the u8 hot-path dispatcher: the CUDA kernel K1 on
-a CUDA tensor, its plain version on a CPU tensor (``kernels/warp.py``).
+bilinear sampling, matching cv2.warpAffine without WARP_INVERSE_MAP;
+``warp_perspective(img, H)`` is the same for a homography
+(cv2.warpPerspective). ``warp_affine_fast`` / ``warp_perspective_fast`` are
+the u8 hot-path dispatchers: the CUDA kernels K1 / K2 on a CUDA tensor,
+their plain versions on a CPU tensor (``kernels/warp.py``).
 """
 
 from __future__ import annotations
@@ -85,18 +87,37 @@ def sample_bilinear(img: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
 
 
 def invert_affine(m: torch.Tensor) -> torch.Tensor:
-    """Invert a (2, 3) affine matrix (cv::invertAffineTransform), on m's
-    device."""
-    a, b, tx = m[0, 0], m[0, 1], m[0, 2]
-    c, d, ty = m[1, 0], m[1, 1], m[1, 2]
+    """Invert (..., 2, 3) affine matrices (cv::invertAffineTransform), on
+    m's device."""
+    a, b, tx = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    c, d, ty = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
     det = a * d - b * c
     det = torch.where(det.abs() < 1e-12, torch.full_like(det, 1e-12), det)
     ia, ib = d / det, -b / det
     ic, id_ = -c / det, a / det
     itx = -(ia * tx + ib * ty)
     ity = -(ic * tx + id_ * ty)
-    return torch.stack([torch.stack([ia, ib, itx]),
-                        torch.stack([ic, id_, ity])])
+    return torch.stack([torch.stack([ia, ib, itx], dim=-1),
+                        torch.stack([ic, id_, ity], dim=-1)], dim=-2)
+
+
+def det3(h: torch.Tensor) -> torch.Tensor:
+    """Determinants of (..., 3, 3) matrices, r0 . (r1 x r2), by torch ops
+    on h's device (no LU, so no error check and no host read)."""
+    return (h[..., 0, :] * torch.linalg.cross(h[..., 1, :], h[..., 2, :])
+            ).sum(dim=-1)
+
+
+def invert_homography(h: torch.Tensor) -> torch.Tensor:
+    """Invert (..., 3, 3) matrices as adjugate / determinant, by torch ops
+    on h's device. The result is the true inverse, not normalized by its
+    [2, 2] entry (the JAX CPU path's ``jnp.linalg.inv``)."""
+    r0, r1, r2 = h[..., 0, :], h[..., 1, :], h[..., 2, :]
+    adj = torch.stack([torch.linalg.cross(r1, r2),
+                       torch.linalg.cross(r2, r0),
+                       torch.linalg.cross(r0, r1)], dim=-1)
+    det = (r0 * adj[..., :, 0]).sum(dim=-1)
+    return adj / det[..., None, None]
 
 
 def affine_coords(minv: torch.Tensor, out_h: int, out_w: int
@@ -109,6 +130,38 @@ def affine_coords(minv: torch.Tensor, out_h: int, out_w: int
     sx = (minv[0, 0] * xs + minv[0, 1] * ys) + minv[0, 2]
     sy = (minv[1, 0] * xs + minv[1, 1] * ys) + minv[1, 2]
     return sx, sy
+
+
+def perspective_coords(hinv: torch.Tensor, out_h: int, out_w: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Source coordinates (sx, sy), each (out_h, out_w) float32, of the
+    (3, 3) inverse homography, as the JAX CPU path and K2 compute them:
+    each row is (p*x + q*y) + r; the denominator is set to 1e-9 where its
+    magnitude is below 1e-9; sx and sy are true divides."""
+    dev = hinv.device
+    ys = torch.arange(out_h, dtype=torch.float32, device=dev)[:, None]
+    xs = torch.arange(out_w, dtype=torch.float32, device=dev)[None, :]
+    den = (hinv[2, 0] * xs + hinv[2, 1] * ys) + hinv[2, 2]
+    den = torch.where(den.abs() < 1e-9, torch.full_like(den, 1e-9), den)
+    sx = ((hinv[0, 0] * xs + hinv[0, 1] * ys) + hinv[0, 2]) / den
+    sy = ((hinv[1, 0] * xs + hinv[1, 1] * ys) + hinv[1, 2]) / den
+    return sx, sy
+
+
+def warp_perspective(img: torch.Tensor, h_mat: torch.Tensor,
+                     out_h: int | None = None, out_w: int | None = None,
+                     border_mode: int = BORDER_CONSTANT,
+                     border_value: float = 0.0,
+                     inverse_map: bool = False) -> torch.Tensor:
+    """cv2.warpPerspective: dst(x,y) = src(H^{-1}(x,y)), bilinear, float32
+    out. h_mat: (3, 3) homography (dst <- src forward map unless
+    inverse_map)."""
+    out_h = out_h if out_h is not None else img.shape[0]
+    out_w = out_w if out_w is not None else img.shape[1]
+    h_mat = h_mat.to(torch.float32)
+    hinv = h_mat if inverse_map else invert_homography(h_mat)
+    sx, sy = perspective_coords(hinv, out_h, out_w)
+    return sample_bilinear(img, sx, sy, border_mode, border_value)
 
 
 def warp_affine(img: torch.Tensor, m: torch.Tensor,
@@ -151,6 +204,23 @@ def warp_affine_fast(img: torch.Tensor, m: torch.Tensor,
                           border_value)
 
 
+def warp_perspective_fast(img: torch.Tensor, h_mat: torch.Tensor,
+                          out_h: int | None = None, out_w: int | None = None,
+                          border_mode: int = BORDER_CONSTANT,
+                          border_value: float = 0.0) -> torch.Tensor:
+    """u8-domain projective warp of the homography emit (streaming and
+    offline), through K2.
+
+    Float input is quantized to u8 first and the result is u8, as in
+    ``warp_affine_fast``. The JAX version's envelope arguments
+    (``max_angle_deg``, ``max_shift``, ``branch``) have no counterpart: K2
+    is exact for any homography."""
+    from video_stab_tpu_torch.kernels.warp import warp_homography_u8
+    from video_stab_tpu_torch.ops.color import saturate_u8
+    return warp_homography_u8(saturate_u8(img), h_mat, out_h, out_w,
+                              border_mode, border_value)
+
+
 def rotation_matrix_2d(center_x: float, center_y: float,
                        angle_deg: torch.Tensor, scale: float = 1.0
                        ) -> torch.Tensor:
@@ -167,9 +237,10 @@ def rotation_matrix_2d(center_x: float, center_y: float,
 
 def similarity_matrix(dx: torch.Tensor, dy: torch.Tensor, da: torch.Tensor,
                       scale: float = 1.0) -> torch.Tensor:
-    """The stabilizer's (2, 3) rigid matrix
-    [[cos da, -sin da, dx], [sin da, cos da, dy]]."""
+    """The stabilizer's rigid matrix [[cos da, -sin da, dx],
+    [sin da, cos da, dy]]: (2, 3), or (..., 2, 3) for batched inputs."""
     c = torch.cos(da) * scale
     s = torch.sin(da) * scale
-    return torch.stack([torch.stack([c, -s, dx.to(torch.float32)]),
-                        torch.stack([s, c, dy.to(torch.float32)])])
+    return torch.stack([torch.stack([c, -s, dx.to(torch.float32)], dim=-1),
+                        torch.stack([s, c, dy.to(torch.float32)], dim=-1)],
+                       dim=-2)
