@@ -11,8 +11,18 @@ Phases (any failure is an uncaught exception and a nonzero exit):
    sources, one nvcc each, started together) are compiled from the
    checkout's sources into build/torch_kernels/.
 3. Kernels against their plain PyTorch versions on the card, at the shapes
-   the main paths give them, with the tolerances of the CPU parity tests;
-   kernel and plain times from CUDA events (median of 25 after warm-up).
+   the main paths give them: K1, K2, K4 and K5 bit for bit, K3 within
+   1e-5. Then, per kernel and shape: ``device_us``, the kernel's own time
+   from ``torch.profiler`` (self CUDA time of its symbols over 64 launches,
+   per launch; the emit warps and the enhancer cycle through 16 distinct
+   1080p frames, so their input is cold in L2 as on the path);
+   ``call_ms``, the wrapper's time per call over 64 back-to-back calls
+   between CUDA events (host work included); the plain version's device
+   time (every kernel it launches) and call time the same two ways;
+   ``bound_us``, the larger of the bytes (each input read once, each
+   output written once) over 3.35 TB/s and the float32 operations over
+   67 TFLOP/s, with ``bound_share`` = bound / device time; and for K5b its
+   one-call yardstick, ``avg_pool1d``, timed the same two ways.
 4. The paths, each with the kernels' launch counters zeroed just before it
    and read just after (each kernel of the path must be > 0):
    a. ``ProcessingChain`` with exactly the ``__graft_entry__.entry()``
@@ -31,15 +41,19 @@ Phases (any failure is an uncaught exception and a nonzero exit):
    on a small input: the chain, the homography ``Stabilizer`` and offline
    ``stabilize_clip`` of both models, all fed the same RANSAC draws.
 
-The line before last is the card's ``nvidia-smi`` name and power limit; the
-last line is ``{"ok": true, "device": {...}}``.
+Then one ``{"kernels": [...]}`` line: per kernel the phase-3 numbers, the
+launches of each phase-4 path and its launches per frame. Its ``ms``,
+``plain_ms`` and ``library_ms`` are device times, so they compare with one
+another; ``call_ms``, ``plain_call_ms`` and ``library_call_ms`` are the
+same calls' times with the host's work. The line before
+last is the card's ``nvidia-smi`` name and power limit; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import collections
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -90,24 +104,103 @@ def make_frames(h: int, w: int, n: int, seed: int = SEED) -> np.ndarray:
     return frames
 
 
-def time_ms(fn, torch, warmup: int = 5, reps: int = 25) -> float:
-    """Median ms of fn() on the current stream, CUDA events per call."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+# The yardsticks of phase 3: the H100 SXM data sheet's rates (at 700 W).
+HBM_BYTES_PER_S = 3.35e12        # device memory
+F32_FLOPS_PER_S = 67e12          # float32 outside the tensor cores
+N_CALLS = 64                     # calls per device-time and call-time sample
+N_COLD = 16                      # distinct 1080p inputs cycled (> 50 MB L2)
+
+
+def bound_us(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time the card could take: the larger of the bytes (each
+    input read once, each output written once) over the memory rate and
+    the float32 operations over the peak rate, with which of the two."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e6
+    t_ops = flops / F32_FLOPS_PER_S * 1e6
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def device_us(torch, fn, symbols, per_call: int = 1, n: int = N_CALLS,
+              attempts: int = 3) -> float:
+    """Device time per call from torch.profiler: the self CUDA time of the
+    kernels whose names hold one of ``symbols`` over fn(0) .. fn(n - 1),
+    divided by the number of such kernels the profiler recorded, times
+    ``per_call`` (kernels per call). With ``symbols`` None: every kernel's
+    time, divided by n. The profiler may drop a trace's kernel records, so
+    a trace with no device time for them, or with fewer than half of the
+    launches, is taken again; after ``attempts`` such traces it fails."""
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(3):
+        fn(i)
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(n):
+                fn(i)
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for ev in prof.key_averages():
+            if "CUDA" not in str(ev.device_type):
+                continue
+            if symbols is None or any(s in ev.key for s in symbols):
+                total += ev.self_device_time_total
+                count += ev.count
+        if total > 0.0 and (symbols is None or 2 * count >= per_call * n):
+            return total / n if symbols is None else total / count * per_call
+        print(f"profiler: {count} kernels, {total} us of device time for "
+              f"{symbols} over {n} calls; tracing again")
+    raise RuntimeError(f"profiler: no complete trace of {symbols} in "
+                       f"{attempts} attempts")
+
+
+def call_ms(torch, fn, n: int = N_CALLS) -> float:
+    """ms per call of fn(i), n back-to-back calls between two CUDA events
+    (host work included: this is the wrapper's time, not the kernel's)."""
+    for i in range(3):
+        fn(i)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(n):
+        fn(i)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def timing(torch, label, kernel, plain, symbols, nbytes, flops,
+           per_call: int = 1) -> dict:
+    """Phase 3's numbers for one kernel at one shape, printed on one line."""
+    dev = device_us(torch, kernel, symbols, per_call)
+    row = dict(device_us=dev, call_ms=call_ms(torch, kernel),
+               plain_device_us=device_us(torch, plain, None, n=16),
+               plain_call_ms=call_ms(torch, plain, n=16))
+    row["bound_us"], row["bound_by"] = bound_us(nbytes, flops)
+    row["bound_share"] = row["bound_us"] / dev
+    print(f"{label}: device {dev:.3f} us, plain {row['plain_device_us']:.3f}"
+          f" us; wrapper call {row['call_ms']:.4f} ms, plain "
+          f"{row['plain_call_ms']:.4f} ms; bound {row['bound_us']:.3f} us "
+          f"({row['bound_by']}), bound_share {row['bound_share']:.3f}")
+    return row
+
+
+# float32 operations per output element, for the operation bound:
+# coordinates (two rounded 3-term maps, K2 a third and two divides) and
+# fractions per pixel, 9 per channel for the blend; K3's two Sobel
+# stencils, three products, their 3x3 sums and the eigenvalue per pixel;
+# K4's stages per value and the gray per pixel; K5's window sum per value.
+WARP_FLOPS = {False: lambda c: 10 + 9 * c, True: lambda c: 15 + 9 * c}
+CORNER_FLOPS = 55
+ENHANCE_FLOPS_PER_VALUE, GRAY_FLOPS = 8, 5
+WARP_LIBRARY = ("none: grid_sample needs affine_grid, float NCHW and a "
+                "separate round, so it is not one call")
 
 
 def check_kernels(torch, dev) -> dict:
-    """Phase 3: each kernel against its plain version at the path's shapes."""
+    """Phase 3: each kernel against its plain version at the path's shapes,
+    then its device time, wrapper time, bound and yardstick."""
     from video_stab_tpu_torch.core.params import EnhancerParams
     from video_stab_tpu_torch.kernels import enhance as kenh
     from video_stab_tpu_torch.kernels import features as kfeat
@@ -120,6 +213,10 @@ def check_kernels(torch, dev) -> dict:
 
     results = {}
     frame = torch.from_numpy(make_frames(1080, 1920, 1, seed=1)[0]).to(dev)
+    # The emit warp and the enhancer read a frame that is cold in L2: their
+    # timed calls cycle through N_COLD distinct frames.
+    cold = [torch.roll(frame, 17 * k, dims=1).contiguous()
+            for k in range(N_COLD)]
 
     def rigid(ang_deg, tx, ty):
         a = np.radians(ang_deg)
@@ -148,8 +245,10 @@ def check_kernels(torch, dev) -> dict:
          .contiguous(), a_roll, BORDER_REPLICATE),
     ]
     err_k1 = 0
+    k1 = {"max_abs_err": 0.0, "cases": {}}
     for name, img, m, mode in warp_cases:
         h, w = img.shape[:2]
+        ch = img.shape[2]
         minv = invert_affine(m).reshape(6).contiguous()
         got = kwarp.warp_affine_u8_cuda(img, minv, h, w, mode)
         want = kwarp.warp_affine_u8_plain(img, minv, h, w, mode)
@@ -162,16 +261,22 @@ def check_kernels(torch, dev) -> dict:
         err = int(d.max())
         print(f"K1 {name}: max|kernel-plain| {err}, "
               f"{int((d > 0).sum())} differing px, {bad} away from a .5 tie")
-        assert err <= 1 and bad == 0, name
+        assert err == 0 and torch.equal(got, want), name
         err_k1 = max(err_k1, err)
-        ms = time_ms(lambda: kwarp.warp_affine_u8_cuda(img, minv, h, w, mode),
-                     torch)
-        plain_ms = time_ms(lambda: kwarp.warp_affine_u8_plain(img, minv, h, w,
-                                                              mode), torch)
-        print(f"K1 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        if name.startswith("emit+"):
-            results["warp_affine_u8"] = dict(ms=ms, plain_ms=plain_ms)
-    results["warp_affine_u8"]["max_abs_err"] = float(err_k1)
+        srcs = cold if name.startswith("emit") else [img]
+        k1["cases"][name] = timing(
+            torch, f"K1 {name}",
+            lambda i: kwarp.warp_affine_u8_cuda(srcs[i % len(srcs)], minv,
+                                                h, w, mode),
+            lambda i: kwarp.warp_affine_u8_plain(srcs[i % len(srcs)], minv,
+                                                 h, w, mode),
+            ["warp_tile_kernel"], 2 * h * w * ch,
+            h * w * WARP_FLOPS[False](ch))
+    # The row's numbers are the chain's emit warp (with the roll).
+    k1.update(k1["cases"]["emit+2deg roll 1080x1920x3 constant"])
+    k1["max_abs_err"] = float(err_k1)
+    k1["library"] = WARP_LIBRARY
+    results["warp_affine_u8"] = k1
 
     resp, peak = kfeat.corner_response_cuda(gray540)
     p_resp, p_peak = kfeat.corner_response_plain(gray540)
@@ -181,12 +286,14 @@ def check_kernels(torch, dev) -> dict:
     print(f"K3 corner_response 540x960: max|resp diff| {err_k3:.3e}, "
           f"{n_peak} peak-mask differences")
     assert err_k3 <= 1e-5 and n_peak == 0
-    ms = time_ms(lambda: kfeat.corner_response_cuda(gray540), torch)
-    plain_ms = time_ms(lambda: kfeat.corner_response_plain(gray540), torch)
-    print(f"K3 corner_response 540x960: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms")
-    results["corner_response"] = dict(ms=ms, plain_ms=plain_ms,
-                                      max_abs_err=err_k3)
+    k3 = timing(torch, "K3 corner_response 540x960",
+                lambda i: kfeat.corner_response_cuda(gray540),
+                lambda i: kfeat.corner_response_plain(gray540),
+                ["min_eig_kernel", "peak_kernel"], 540 * 960 * (4 + 4 + 1),
+                540 * 960 * CORNER_FLOPS, per_call=2)
+    k3.update(max_abs_err=err_k3, library="none: no single call computes "
+              "the min-eigenvalue response")
+    results["corner_response"] = k3
 
     ep = EnhancerParams(brightness=5.0, contrast=1.1, gamma=0.9)
     out, g = kenh.enhance_u8_cuda(ep, frame, None, want_gray=True)
@@ -198,19 +305,27 @@ def check_kernels(torch, dev) -> dict:
     print(f"K4 enhance_u8 1080x1920x3: max|u8 diff| {int(d.max())}, "
           f"{same * 100:.4f}% identical, max|gray diff| {err_g:.3e}")
     assert int(d.max()) <= 1 and same >= 0.999 and err_g <= 1e-3
-    ms = time_ms(lambda: kenh.enhance_u8_cuda(ep, frame, None, True), torch)
-    plain_ms = time_ms(lambda: kenh.enhance_u8_plain(ep, frame, None, True),
-                       torch)
-    print(f"K4 enhance_u8 1080x1920x3: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms")
-    results["enhance_u8"] = dict(ms=ms, plain_ms=plain_ms,
-                                 max_abs_err=float(d.max()))
-    results.update(check_new_kernels(torch, dev, frame))
+    assert torch.equal(out, p_out) and torch.equal(g, p_g)
+    n_px = 1080 * 1920
+    k4 = timing(torch, "K4 enhance_u8 1080x1920x3 with gray",
+                lambda i: kenh.enhance_u8_cuda(ep, cold[i % N_COLD], None,
+                                               True),
+                lambda i: kenh.enhance_u8_plain(ep, cold[i % N_COLD], None,
+                                                True),
+                ["enhance_table_kernel"], n_px * (3 + 3 + 4),
+                n_px * (3 * ENHANCE_FLOPS_PER_VALUE + GRAY_FLOPS))
+    k4.update(max_abs_err=float(d.max()),
+              library="none: the pointwise chain is several calls")
+    results["enhance_u8"] = k4
+    results.update(check_new_kernels(torch, dev, frame, cold))
     return results
 
 
-def check_new_kernels(torch, dev, frame) -> dict:
-    """Phase 3, K2 / K5a / K5b: bit for bit against the plain versions."""
+def check_new_kernels(torch, dev, frame, cold) -> dict:
+    """Phase 3, K2 / K5a / K5b: bit for bit against the plain versions;
+    K5b also against its one-call yardstick, ``avg_pool1d``."""
+    import torch.nn.functional as F
+
     from video_stab_tpu_torch.kernels import traj as ktraj
     from video_stab_tpu_torch.kernels import warp as kwarp
     from video_stab_tpu_torch.ops.warp import invert_homography
@@ -228,15 +343,16 @@ def check_new_kernels(torch, dev, frame) -> dict:
     err = int(d.max())
     print(f"K2 warp_homography_u8 1080x1920x3 constant: max|kernel-plain| "
           f"{err}, {int((d > 0).sum())} differing px")
-    assert err == 0
-    ms = time_ms(lambda: kwarp.warp_homography_u8_cuda(frame, hinv, 1080,
-                                                       1920), torch)
-    plain_ms = time_ms(lambda: kwarp.warp_homography_u8_plain(
-        frame, hinv, 1080, 1920), torch)
-    print(f"K2 warp_homography_u8 1080x1920x3: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms")
-    results["warp_homography_u8"] = dict(ms=ms, plain_ms=plain_ms,
-                                         max_abs_err=float(err))
+    assert err == 0 and torch.equal(got, want)
+    k2 = timing(torch, "K2 warp_homography_u8 1080x1920x3",
+                lambda i: kwarp.warp_homography_u8_cuda(cold[i % N_COLD],
+                                                        hinv, 1080, 1920),
+                lambda i: kwarp.warp_homography_u8_plain(cold[i % N_COLD],
+                                                         hinv, 1080, 1920),
+                ["warp_tile_kernel"], 2 * 1080 * 1920 * 3,
+                1080 * 1920 * WARP_FLOPS[True](3))
+    k2.update(max_abs_err=float(err), library=WARP_LIBRARY)
+    results["warp_homography_u8"] = k2
 
     rng = np.random.default_rng(7)
 
@@ -255,19 +371,35 @@ def check_new_kernels(torch, dev, frame) -> dict:
         got, want = cuda_fn(p, r), plain_fn(p, r)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        print(f"{name} ({p.shape[0]}, {p.shape[1]}) r={r}: "
-              f"max|kernel-plain| {err:.3e}, "
+        shape = f"({p.shape[0]}, {p.shape[1]}) r={r}"
+        print(f"{name} {shape}: max|kernel-plain| {err:.3e}, "
               f"bit-exact {bool(torch.equal(got, want))}")
         assert torch.equal(got, want), name
-        ms = time_ms(lambda: cuda_fn(p, r), torch)
-        plain_ms = time_ms(lambda: plain_fn(p, r), torch)
-        print(f"{name} ({p.shape[0]}, {p.shape[1]}) r={r}: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
-        row = results.setdefault(name, dict(ms=ms, plain_ms=plain_ms,
-                                            max_abs_err=err, shapes=[]))
-        row["shapes"].append(f"({p.shape[0]}, {p.shape[1]}) r={r}: kernel "
-                             f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+        window = 2 * r + 1 if name == "box_filter_centered" else r
+        t = timing(torch, f"{name} {shape}", lambda i: cuda_fn(p, r),
+                   lambda i: plain_fn(p, r), ["box_window_kernel"],
+                   4 * (2 * p.numel() + p.shape[1]), p.numel() * (window + 3))
+        t["shape"] = shape
+        row = results.setdefault(name, dict(t, max_abs_err=err, shapes=[]))
+        row["shapes"].append(t)
         row["max_abs_err"] = max(row["max_abs_err"], err)
+        if name == "box_filter_centered" and p.shape[1] == 3:
+            # The yardstick: one PyTorch call with the same centered,
+            # count-normalized mean; the port never calls it.
+            def pool(i, p=p, r=r):
+                return F.avg_pool1d(p.t()[None], 2 * r + 1, stride=1,
+                                    padding=r, count_include_pad=False)
+            lib_err = float((pool(0)[0].t() - got).abs().max())
+            row["library"] = "torch.nn.functional.avg_pool1d"
+            row["library_device_us"] = device_us(torch, pool, None)
+            row["library_call_ms"] = call_ms(torch, pool)
+            row["library_max_abs_diff"] = lib_err
+            print(f"{name} {shape}: avg_pool1d device "
+                  f"{row['library_device_us']:.3f} us, call "
+                  f"{row['library_call_ms']:.4f} ms; max|avg_pool1d - "
+                  f"kernel| {lib_err:.3e}")
+    results["box_filter_convolve"]["library"] = \
+        "none: the median pad needs a sort"
     # K5a has no production caller: its launch count is phase 3's.
     results["box_filter_convolve"]["phase3_launches"] = \
         ktraj.CONVOLVE_LAUNCHES
@@ -447,12 +579,12 @@ def run_homography_stream(torch, dev, pool) -> dict:
 
 def run_offline(torch, dev, pool) -> dict:
     """Phase 4c: offline stabilize_clip at 1080p, both models, counters
-    zeroed around each run."""
+    zeroed around each run; the launches of each run by its label."""
     from video_stab_tpu_torch.core.params import StabilizerParams
     from video_stab_tpu_torch.offline import stabilize_clip_device
 
     clip = pool[:OFFLINE_SLICE_FRAMES]
-    total = {}
+    by_model = {}
     for label, params, needed in (
             ("similarity+box", StabilizerParams(smoothing_radius=15),
              ("warp_affine_u8", "box_filter_centered", "corner_response")),
@@ -471,9 +603,8 @@ def run_offline(torch, dev, pool) -> dict:
         print(f"offline {label}: output {tuple(out.shape)}, last frame std "
               f"{std:.3f}")
         assert std > 5.0
-        for k, v in launches.items():
-            total[k] = total.get(k, 0) + v
-    return total
+        by_model[f"offline {label}"] = launches
+    return by_model
 
 
 def steady_state(torch, dev, pool) -> None:
@@ -680,7 +811,10 @@ def main() -> int:
     pool = torch.from_numpy(make_frames(1080, 1920, N_FRAMES)).to(dev)
     by_path = {"chain": run_slice(torch, dev, pool),
                "homography stream": run_homography_stream(torch, dev, pool),
-               "offline": run_offline(torch, dev, pool)}
+               **run_offline(torch, dev, pool)}
+    frames = {"chain": N_FRAMES, "homography stream": N_FRAMES,
+              "offline similarity+box": OFFLINE_SLICE_FRAMES,
+              "offline homography+box": OFFLINE_SLICE_FRAMES}
     steady_state(torch, dev, pool)
     del pool
     offline_throughput(torch, dev)
@@ -702,18 +836,35 @@ def main() -> int:
     }
     rows = []
     for name, (src, rep) in meta.items():
+        k = kernels[name]
         paths = {p: c[name] for p, c in by_path.items() if c.get(name)}
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": rep, "launches": sum(paths.values()),
                "launches_by_path": paths,
-               "max_abs_err": kernels[name]["max_abs_err"],
-               "ms": kernels[name]["ms"],
-               "plain_ms": kernels[name]["plain_ms"]}
+               "launches_per_frame": {p: n / frames[p]
+                                      for p, n in paths.items()},
+               "max_abs_err": k["max_abs_err"],
+               "ms": k["device_us"] / 1000.0,
+               "plain_ms": k["plain_device_us"] / 1000.0,
+               "bound_ms": k["bound_us"] / 1000.0,
+               "bound_by": k["bound_by"],
+               "library_ms": (k["library_device_us"] / 1000.0
+                              if "library_device_us" in k else None),
+               "device_us": k["device_us"], "call_ms": k["call_ms"],
+               "plain_call_ms": k["plain_call_ms"],
+               "library_call_ms": k.get("library_call_ms"),
+               "bound_us": k["bound_us"], "bound_share": k["bound_share"],
+               "library": k["library"],
+               "library_device_us": k.get("library_device_us")}
+        for extra in ("cases", "shapes", "library_max_abs_diff"):
+            if extra in k:
+                row[extra] = k[extra]
         if name == "box_filter_convolve":
             # No production caller: the launches are phase 3's.
-            row["launches"] = kernels[name]["phase3_launches"]
+            row["launches"] = k["phase3_launches"]
             row["launches_by_path"] = {"phase 3 (no production caller)":
                                        row["launches"]}
+            row["launches_per_frame"] = {}
         rows.append(row)
         assert row["launches"] > 0, row
     print(json.dumps({"kernels": rows}))

@@ -4,6 +4,9 @@ Counterpart of ``video_stab_tpu/pallas/enhance.py:enhance_pointwise``,
 fused with the frame's u8 -> f32 cast before it and the ``saturate_u8``
 after it. It can also return the BT.601 gray of the enhanced (unsaturated)
 frame, which the fused chain's roll estimate and analysis resize read.
+
+The kernel evaluates the pointwise stages once per u8 value and channel,
+into a table, and looks every pixel up in it.
 """
 
 from __future__ import annotations

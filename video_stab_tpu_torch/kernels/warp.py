@@ -8,6 +8,11 @@ envelope, tier ladder and tile pick have no counterpart: the CUDA kernels
 are exact bilinear for any affine or projective map, where the JAX path
 clamps outside its static envelope. K2 computes what the JAX CPU path
 (``ops/warp.py:warp_perspective``) computes, rounded and clipped to u8.
+Both are one kernel template (border mode, channels and map kind chosen
+per launch); in the 3-channel affine kernel, where a warp's row of output
+maps inside the source, it reads the taps without index maps
+(``tests/test_torch_warp_tiles.py`` holds that rule against the per-pixel
+coordinates).
 
 ``LAUNCHES`` counts K1 launches, ``HOMOGRAPHY_LAUNCHES`` K2 launches.
 """
