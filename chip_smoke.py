@@ -7,12 +7,17 @@ Phases (any failure is an uncaught exception and a nonzero exit):
 
 1. Environment: torch and CUDA versions, the card's name and power limit.
    Without a CUDA device the script exits 1 before printing any result.
-2. Build: the hand-written kernels (video_stab_tpu_torch/csrc/, four
+2. Build: the hand-written kernels (video_stab_tpu_torch/csrc/, five
    sources, one nvcc each, started together) are compiled from the
    checkout's sources into build/torch_kernels/.
 3. Kernels against their plain PyTorch versions on the card, at the shapes
    the main paths give them: K1, K2, K4 and K5 bit for bit, K3 within
-   1e-5. Then, per kernel and shape: ``device_us``, the kernel's own time
+   1e-5, K6 (the LK Newton ladder: 540x960 analysis gray of a real frame
+   pair, 3 levels, 200 GFTT corners) at the tolerance of the plain version
+   against JAX (identical status; tracked positions within max(1e-3, eps)
+   and >= 95 % within 1e-3 px; err within 1e-2 where positions agree; at
+   eps = 0.03 and 1e-6). Then, per kernel and shape: ``device_us``, the
+   kernel's own time
    from ``torch.profiler`` (self CUDA time of its symbols over 64 launches,
    per launch; the emit warps and the enhancer cycle through 16 distinct
    1080p frames, so their input is cold in L2 as on the path);
@@ -28,17 +33,23 @@ Phases (any failure is an uncaught exception and a nonzero exit):
    a. ``ProcessingChain`` with exactly the ``__graft_entry__.entry()``
       parameters at 1920x1080 over 64 frames of textured content with a
       ~2 deg tilted horizon and per-frame jitter, then ``flush()``; output
-      frames, the roll angle and the queue drain are checked (K1, K3, K4);
+      frames, the roll angle and the queue drain are checked (K1, K3, K4,
+      K6);
    b. the streaming homography ``Stabilizer`` (smoothing_radius=15) at
-      1920x1080 over 64 frames, then ``flush()`` (K2, K3); its host reads
-      per steady-state frame are counted with torch's sync debug mode;
+      1920x1080 over 64 frames, then ``flush()`` (K2, K3, K6); its host
+      reads per steady-state frame are counted with torch's sync debug
+      mode;
    c. offline ``stabilize_clip`` at 1920x1080 over 32 frames, similarity +
-      box (K1, K5b, K3) and homography + box (K2, K5b, K3).
+      box (K1, K5b, K3, K6) and homography + box (K2, K5b, K3, K6).
 5. Steady-state ms/frame of the chain, the bare ``Stabilizer`` and the
    homography ``Stabilizer`` at 1080p (CUDA events); offline frames/s of
    both models over 240 frames at 1080p with the analysis, smoothing and
-   warp stages timed apart; and the CUDA runs against the CPU (plain) runs
-   on a small input: the chain, the homography ``Stabilizer`` and offline
+   warp stages timed apart; where the time goes with LK's Newton ladder
+   through its plain version and through K6, in turns (plain, kernel,
+   kernel, plain) on each streaming path and offline: ms/frame, LK's
+   ms/frame, kernel launches per frame and the device's busy share from
+   ``torch.profiler``; and the CUDA runs against the CPU (plain) runs on a
+   small input: the chain, the homography ``Stabilizer`` and offline
    ``stabilize_clip`` of both models, all fed the same RANSAC draws.
 
 Then one ``{"kernels": [...]}`` line: per kernel the phase-3 numbers, the
@@ -318,6 +329,7 @@ def check_kernels(torch, dev) -> dict:
               library="none: the pointwise chain is several calls")
     results["enhance_u8"] = k4
     results.update(check_new_kernels(torch, dev, frame, cold))
+    results.update(check_lk(torch, dev))
     return results
 
 
@@ -406,6 +418,110 @@ def check_new_kernels(torch, dev, frame, cold) -> dict:
     return results
 
 
+# K6's float32 operations per window pixel: three bilinear blends (9 each)
+# and G's three products and sums per template pixel and level; per Newton
+# step the blend, the residual and b's two products and sums.
+LK_TEMPLATE_FLOPS, LK_STEP_FLOPS = 33, 14
+
+
+def lk_agreement(label, got, want, eps) -> dict:
+    """K6 against the plain version at the plain version's tolerance
+    against JAX (tests/test_torch_ops.py::test_lk_track); a status flip
+    (lvl_ok at the min-eig threshold) is reported and fails."""
+    status = want[1].cpu().numpy()
+    flips = int((got[1].cpu().numpy() != status).sum())
+    d = (got[0] - want[0]).abs().max(dim=1).values.cpu().numpy()
+    same = d < 1e-3
+    err_d = (got[2] - want[2]).abs().cpu().numpy()[same]
+    row = {"tracked": int(status.sum()), "status_flips": flips,
+           "max_abs_err": float(d[status].max()),
+           "within_1e-3": float(same[status].mean()),
+           "err_max_abs_diff": float(err_d.max()) if err_d.size else 0.0}
+    print(f"K6 {label} eps={eps}: {row['tracked']} of {len(status)} points "
+          f"tracked, {flips} status flips; tracked positions max|kernel-"
+          f"plain| {row['max_abs_err']:.3e} px, "
+          f"{row['within_1e-3'] * 100:.2f}% within 1e-3 px; err max diff "
+          f"{row['err_max_abs_diff']:.3e}")
+    assert flips == 0, label
+    assert row["max_abs_err"] <= max(1e-3, eps), label
+    assert row["within_1e-3"] >= 0.95 and row["err_max_abs_diff"] <= 1e-2
+    return row
+
+
+def check_lk(torch, dev) -> dict:
+    """Phase 3, K6: the LK Newton ladder at the main path's shape (a real
+    1080p frame pair as 540x960 analysis gray, 3 levels, the re-detect's
+    200 GFTT corners) against lk_levels_plain on the same planes."""
+    from video_stab_tpu_torch.core.params import StabilizerParams
+    from video_stab_tpu_torch.core.stabilizer import (_analysis_gray,
+                                                      _detect_features)
+    from video_stab_tpu_torch.kernels import lk as klk
+    from video_stab_tpu_torch.ops.lk import lk_planes
+
+    sp = StabilizerParams()
+    pair = torch.from_numpy(make_frames(1080, 1920, 2, seed=5)).to(dev)
+    prev, curr = (_analysis_gray(sp, f.float()) for f in pair)
+    pts, mask = _detect_features(sp, prev, redetect=True)
+    assert int(mask.sum()) == sp.max_corners, int(mask.sum())
+    planes = lk_planes(prev, curr, sp.lk_levels)
+    args = (pts, mask, None, sp.lk_window, sp.lk_iters)
+    label = (f"lk_track {prev.shape[0]}x{prev.shape[1]} "
+             f"{sp.lk_levels + 1} levels {int(mask.sum())} points")
+    rows = {}
+    for eps in (1e-6, 0.03):
+        got = klk.lk_levels_cuda(*planes, *args, eps, 1e-4)
+        want = klk.lk_levels_plain(*planes, *args, eps, 1e-4)
+        torch.cuda.synchronize()
+        rows[eps] = lk_agreement(label, got, want, eps)
+    n, win2 = pts.shape[0], (sp.lk_window + 1) ** 2
+    levels, npix = sp.lk_levels + 1, sp.lk_window ** 2
+    # Bytes: per point and level the template's footprint in the three
+    # prev planes and one search window's in curr; points, mask, outputs.
+    nbytes = n * (levels * 4 * win2 * 4 + 8 + 1 + 8 + 1 + 4)
+    # Operations: the template and the full step budget (an upper count;
+    # the bytes bound it either way).
+    flops = n * npix * (levels * LK_TEMPLATE_FLOPS
+                        + levels * sp.lk_iters * LK_STEP_FLOPS)
+    k6 = timing(torch, f"K6 {label}",
+                lambda i: klk.lk_levels_cuda(*planes, *args, 0.03, 1e-4),
+                lambda i: klk.lk_levels_plain(*planes, *args, 0.03, 1e-4),
+                ["lk_track_kernel"], nbytes, flops)
+    k6.update(rows[0.03], shape=label, eps_1e_6=rows[1e-6],
+              library="none: no PyTorch call computes LK",
+              lk_track_launches=lk_track_launches(torch, prev, curr, pts,
+                                                  mask))
+    return {"lk_track": k6}
+
+
+def lk_track_launches(torch, prev, curr, pts, mask) -> dict:
+    """Kernel launches of one ``lk_track`` call (pyramids, Scharr, bfloat16
+    casts and the ladder) with the ladder through K6 and through its plain
+    version, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from video_stab_tpu_torch.kernels import lk as klk
+    from video_stab_tpu_torch.ops import lk as tlk
+
+    counts = {}
+    for name, ladder in (("kernel", klk.lk_levels),
+                         ("plain", klk.lk_levels_plain)):
+        tlk.lk_levels = ladder
+        try:
+            tlk.lk_track(prev, curr, pts, mask)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                tlk.lk_track(prev, curr, pts, mask)
+                torch.cuda.synchronize()
+        finally:
+            tlk.lk_levels = klk.lk_levels
+        launches, records, _ = kernel_counts(prof)
+        counts[name] = {"launches": launches, "kernel_records": records}
+    print(f"lk_track launches per call: K6 route {counts['kernel']}, plain "
+          f"route {counts['plain']}")
+    return counts
+
+
 def entry_params():
     from video_stab_tpu_torch.core.params import (EnhancerParams, ModeParams,
                                                   RollCorrectionParams,
@@ -435,7 +551,7 @@ def run_slice(torch, dev, pool) -> dict:
     torch.cuda.synchronize()
     launches = {name: n for name, n in read_counts().items()
                 if name in ("warp_affine_u8", "corner_response",
-                            "enhance_u8")}
+                            "enhance_u8", "lk_track")}
     nms_syncs = tfeat.NMS_SYNCS - syncs0
     print(f"slice: launches during the main path {launches}")
     print(f"slice: NMS host reads {nms_syncs} over {N_FRAMES} frames "
@@ -468,6 +584,7 @@ def run_slice(torch, dev, pool) -> dict:
 def kernel_modules():
     from video_stab_tpu_torch.kernels import enhance as kenh
     from video_stab_tpu_torch.kernels import features as kfeat
+    from video_stab_tpu_torch.kernels import lk as klk
     from video_stab_tpu_torch.kernels import traj as ktraj
     from video_stab_tpu_torch.kernels import warp as kwarp
     return {"warp_affine_u8": (kwarp, "LAUNCHES"),
@@ -475,7 +592,8 @@ def kernel_modules():
             "corner_response": (kfeat, "LAUNCHES"),
             "enhance_u8": (kenh, "LAUNCHES"),
             "box_filter_convolve": (ktraj, "CONVOLVE_LAUNCHES"),
-            "box_filter_centered": (ktraj, "CENTERED_LAUNCHES")}
+            "box_filter_centered": (ktraj, "CENTERED_LAUNCHES"),
+            "lk_track": (klk, "LAUNCHES")}
 
 
 def zero_counts() -> None:
@@ -518,7 +636,8 @@ def run_homography_stream(torch, dev, pool) -> dict:
     launches = read_counts()
     print(f"homography stream: launches {launches}")
     assert launches["warp_homography_u8"] > 0 and \
-        launches["corner_response"] > 0, launches
+        launches["corner_response"] > 0 and launches["lk_track"] > 0, \
+        launches
     assert len(outs) == N_FRAMES - radius + 1, len(outs)
     assert len(flushed) == radius - 1, len(flushed)
     for out in outs:
@@ -587,10 +706,11 @@ def run_offline(torch, dev, pool) -> dict:
     by_model = {}
     for label, params, needed in (
             ("similarity+box", StabilizerParams(smoothing_radius=15),
-             ("warp_affine_u8", "box_filter_centered", "corner_response")),
+             ("warp_affine_u8", "box_filter_centered", "corner_response",
+              "lk_track")),
             ("homography+box", homography_params(),
              ("warp_homography_u8", "box_filter_centered",
-              "corner_response"))):
+              "corner_response", "lk_track"))):
         zero_counts()
         out = stabilize_clip_device(clip, params, device=dev)
         torch.cuda.synchronize()
@@ -670,6 +790,158 @@ def offline_throughput(torch, dev) -> None:
               f"host clock {wall * 1000.0:.1f} ms; peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         del out
+
+
+LK_ROUTES = ("plain", "kernel", "kernel", "plain")
+
+
+def kernel_counts(prof) -> tuple[int, int, float]:
+    """From a torch.profiler trace: the host's kernel-launch calls (every
+    CUDA API call whose name holds ``LaunchKernel``), the device's
+    kernel records (not copies or fills) and their device time in us."""
+    launches = records = 0
+    busy_us = 0.0
+    for ev in prof.key_averages():
+        if "LaunchKernel" in ev.key:
+            launches += ev.count
+        elif "CUDA" in str(ev.device_type) and \
+                not ev.key.startswith(("Memcpy", "Memset")):
+            records += ev.count
+            busy_us += ev.self_device_time_total
+    return launches, records, busy_us
+ROUTE_WARM, ROUTE_TIMED, ROUTE_PROFILED = 40, 30, 8
+ROUTE_OFFLINE_FRAMES = 48
+
+
+def lk_routes(torch, dev, pool) -> dict:
+    """Phase 5c: where the time goes with LK's Newton ladder through the
+    plain version and through K6, in turns in this call. Per streaming
+    path: ms/frame (CUDA events over ROUTE_TIMED frames after ROUTE_WARM),
+    LK's ms/frame (CUDA events around each ``lk_track`` call), then over
+    ROUTE_PROFILED frames under ``torch.profiler``: kernel launches per
+    frame (the host's ``cudaLaunchKernel`` calls; the device's kernel
+    records beside them, which the profiler may drop), and the device's
+    busy share (the kernels' device time per frame over the frame's
+    CUDA-event time above; the profiler slows the host, so not over the
+    profiled window). Offline: the analysis stage over ROUTE_OFFLINE_FRAMES 1080p
+    frames of each model. The route is switched by pointing
+    ``ops/lk.py``'s ``lk_levels`` at the plain version for the plain turns;
+    the package has no such switch."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from video_stab_tpu_torch import offline as toff
+    from video_stab_tpu_torch.core import stabilizer as tstab
+    from video_stab_tpu_torch.core.chain import ProcessingChain
+    from video_stab_tpu_torch.core.params import ModeParams, StabilizerParams
+    from video_stab_tpu_torch.core.stabilizer import Stabilizer
+    from video_stab_tpu_torch.kernels import lk as klk
+    from video_stab_tpu_torch.ops import lk as tlk
+
+    lk_events = []
+    real_track = tlk.lk_track
+
+    def timed_track(*a, **k):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_track(*a, **k)
+        end.record()
+        lk_events.append((start, end))
+        return out
+
+    @contextlib.contextmanager
+    def route(name):
+        tlk.lk_levels = klk.lk_levels_plain if name == "plain" \
+            else klk.lk_levels
+        tstab.lk_track = toff.lk_track = timed_track
+        try:
+            yield
+        finally:
+            tlk.lk_levels = klk.lk_levels
+            tstab.lk_track = toff.lk_track = real_track
+
+    def lk_ms() -> float:
+        torch.cuda.synchronize()
+        ms = sum(s.elapsed_time(e) for s, e in lk_events)
+        lk_events.clear()
+        return ms
+
+    paths = {
+        "chain": lambda: ProcessingChain(**entry_params()).process_device,
+        "stabilizer": lambda: Stabilizer(
+            StabilizerParams(smoothing_radius=15),
+            mode=ModeParams()).stabilize_device,
+        "homography stabilizer": lambda: Stabilizer(
+            homography_params(), mode=ModeParams()).stabilize_device,
+    }
+    results = {}
+    for path, make in paths.items():
+        for turn, name in enumerate(LK_ROUTES):
+            with route(name):
+                step = make()
+                for i in range(ROUTE_WARM):
+                    step(pool[i % len(pool)])
+                lk_ms()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for i in range(ROUTE_TIMED):
+                    assert step(pool[(ROUTE_WARM + i) % len(pool)]) \
+                        is not None
+                end.record()
+                end.synchronize()
+                ms = start.elapsed_time(end) / ROUTE_TIMED
+                lk = lk_ms() / ROUTE_TIMED
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    for i in range(ROUTE_PROFILED):
+                        step(pool[i % len(pool)])
+                    torch.cuda.synchronize()
+                    wall_us = (time.perf_counter() - t0) * 1e6
+                lk_ms()
+            launches, records, busy_us = kernel_counts(prof)
+            dev_ms = busy_us / 1000.0 / ROUTE_PROFILED
+            row = {"ms_per_frame": ms, "lk_ms_per_frame": lk,
+                   "lk_share": lk / ms,
+                   "launches_per_frame": launches / ROUTE_PROFILED,
+                   "kernel_records_per_frame": records / ROUTE_PROFILED,
+                   "device_ms_per_frame": dev_ms,
+                   "device_busy_share": dev_ms / ms,
+                   "profiled_ms_per_frame": wall_us / 1000.0
+                   / ROUTE_PROFILED}
+            results.setdefault(path, {}).setdefault(name, []).append(row)
+            print(f"route {path} turn {turn} LK {name}: {ms:.3f} ms/frame, "
+                  f"LK {lk:.3f} ms/frame ({row['lk_share'] * 100:.1f}%); "
+                  f"profiled: {row['launches_per_frame']:.1f} launches/frame"
+                  f" ({row['kernel_records_per_frame']:.1f} kernel records),"
+                  f" device {dev_ms:.3f} ms/frame, busy "
+                  f"{row['device_busy_share'] * 100:.2f}% of the timed "
+                  f"frame")
+
+    from video_stab_tpu_torch.offline import stabilize_clip_device
+    clip = pool[:ROUTE_OFFLINE_FRAMES]
+    for label, params in (("offline similarity+box",
+                           StabilizerParams(smoothing_radius=15)),
+                          ("offline homography+box", homography_params())):
+        for turn, name in enumerate(LK_ROUTES):
+            with route(name):
+                stages = {}
+                stabilize_clip_device(clip, params, device=dev,
+                                      stage_ms=stages)
+                lk = lk_ms()
+            row = {"analyze_ms_per_frame": stages["analyze"] / len(clip),
+                   "lk_ms_per_frame": lk / (len(clip) - 1),
+                   "frames_per_s": len(clip) * 1000.0
+                   / sum(stages.values())}
+            results.setdefault(label, {}).setdefault(name, []).append(row)
+            print(f"route {label} {len(clip)} frames turn {turn} LK {name}: "
+                  f"analyze {row['analyze_ms_per_frame']:.3f} ms/frame, LK "
+                  f"{row['lk_ms_per_frame']:.3f} ms/frame, "
+                  f"{row['frames_per_s']:.2f} frames/s")
+    return results
 
 
 def small_reference(torch, dev) -> None:
@@ -816,6 +1088,7 @@ def main() -> int:
               "offline similarity+box": OFFLINE_SLICE_FRAMES,
               "offline homography+box": OFFLINE_SLICE_FRAMES}
     steady_state(torch, dev, pool)
+    routes = lk_routes(torch, dev, pool)
     del pool
     offline_throughput(torch, dev)
     small_reference(torch, dev)
@@ -833,6 +1106,9 @@ def main() -> int:
                                 "video_stab_tpu/pallas/traj.py:55"),
         "box_filter_centered": ("video_stab_tpu_torch/csrc/traj.cu",
                                 "video_stab_tpu/pallas/traj.py:94"),
+        # K6d, the Newton loop; the gather probes K6a-K6c in "also_replaces"
+        "lk_track": ("video_stab_tpu_torch/csrc/lk.cu",
+                     "tools/lk_inkernel_probe.py:332"),
     }
     rows = []
     for name, (src, rep) in meta.items():
@@ -856,9 +1132,16 @@ def main() -> int:
                "bound_us": k["bound_us"], "bound_share": k["bound_share"],
                "library": k["library"],
                "library_device_us": k.get("library_device_us")}
-        for extra in ("cases", "shapes", "library_max_abs_diff"):
+        for extra in ("cases", "shapes", "library_max_abs_diff", "shape",
+                      "tracked", "status_flips", "within_1e-3",
+                      "err_max_abs_diff", "eps_1e_6", "lk_track_launches"):
             if extra in k:
                 row[extra] = k[extra]
+        if name == "lk_track":
+            row["also_replaces"] = ["tools/lk_kernel_proto.py:33",
+                                    "tools/lk_inkernel_probe.py:107",
+                                    "tools/lk_inkernel_probe.py:63",
+                                    "tools/lk_inkernel_probe.py:282"]
         if name == "box_filter_convolve":
             # No production caller: the launches are phase 3's.
             row["launches"] = k["phase3_launches"]
@@ -867,6 +1150,7 @@ def main() -> int:
             row["launches_per_frame"] = {}
         rows.append(row)
         assert row["launches"] > 0, row
+    print(json.dumps({"lk_routes": routes}))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

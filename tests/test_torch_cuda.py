@@ -180,3 +180,110 @@ def test_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError):
         ktraj.box_filter_centered(torch.zeros((30, 3), dtype=torch.float64,
                                               device=dev), 5)
+
+
+def _lk_pair(dev, h, w, seed, shift):
+    """A textured frame and the same world moved by a sub-pixel shift
+    (bilinear), as (H, W) float32 CUDA tensors."""
+    world = _textured(h + 40, w + 40, seed).astype(np.float64)
+    dy, dx = shift
+    iy, ix = int(np.floor(dy)), int(np.floor(dx))
+    fy, fx = dy - iy, dx - ix
+
+    def crop(oy, ox):
+        return world[20 + oy:20 + oy + h, 20 + ox:20 + ox + w]
+    curr = ((1 - fy) * (1 - fx) * crop(-iy, -ix)
+            + (1 - fy) * fx * crop(-iy, -ix - 1)
+            + fy * (1 - fx) * crop(-iy - 1, -ix)
+            + fy * fx * crop(-iy - 1, -ix - 1))
+    return [torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+            for a in (world[20:20 + h, 20:20 + w], curr)]
+
+
+def _check_lk(got, want, eps):
+    """The plain version's tolerance (tests/test_torch_ops.py::
+    test_lk_track): identical status; tracked positions within
+    max(1e-3, eps) and >= 95 % of them within 1e-3 px; err within 1e-2
+    where the positions agree."""
+    status = want[1].cpu().numpy()
+    np.testing.assert_array_equal(got[1].cpu().numpy(), status)
+    assert status.sum() > len(status) // 2
+    gp, wp = got[0].cpu().numpy(), want[0].cpu().numpy()
+    np.testing.assert_allclose(gp[status], wp[status], atol=max(1e-3, eps),
+                               rtol=0)
+    same = np.abs(gp - wp).max(1) < 1e-3
+    assert (same & status).sum() >= 0.95 * status.sum()
+    np.testing.assert_allclose(got[2].cpu().numpy()[same],
+                               want[2].cpu().numpy()[same], atol=1e-2)
+
+
+@pytest.mark.parametrize("eps", [0.03, 1e-6])
+@pytest.mark.parametrize("case", ["96x128", "96x128 init_pts", "540x960"])
+def test_lk_kernel_matches_plain(dev, case, eps):
+    """K6 against lk_levels_plain on the same planes: at the tolerance of
+    the plain version against JAX, at eps = 0.03 and 1e-6; at 96 x 128 with
+    48 points in [-5, w + 5], and at the main path's 540 x 960, 3 levels,
+    200 GFTT corners."""
+    from video_stab_tpu_torch.kernels import lk as klk
+    from video_stab_tpu_torch.ops.features import good_features_to_track
+    from video_stab_tpu_torch.ops.lk import lk_planes
+    rng = np.random.default_rng(3)
+    init = None
+    if case.startswith("96x128"):
+        h, w, n = 96, 128, 48
+        prev, curr = _lk_pair(dev, h, w, 1, (2.3, -1.6))
+        pts = torch.from_numpy(np.stack(
+            [rng.uniform(-5, w + 5, n), rng.uniform(-5, h + 5, n)],
+            axis=1).astype(np.float32)).to(dev)
+        mask = torch.from_numpy(rng.random(n) > 0.1).to(dev)
+        if case.endswith("init_pts"):
+            init = pts + torch.tensor([-1.6, 2.3], device=dev)
+    else:
+        prev, curr = _lk_pair(dev, 540, 960, 2, (6.4, -9.7))
+        pts, mask = good_features_to_track(prev, max_corners=200,
+                                           quality_level=0.01,
+                                           min_distance=15.0)
+        assert int(mask.sum()) == 200
+    planes = lk_planes(prev, curr, 2)
+    before = klk.LAUNCHES
+    got = klk.lk_levels(*planes, pts, mask, init, 15, 20, eps, 1e-4)
+    assert klk.LAUNCHES == before + 1
+    want = klk.lk_levels_plain(*planes, pts, mask, init, 15, 20, eps, 1e-4)
+    torch.cuda.synchronize()
+    _check_lk(got, want, eps)
+
+
+def test_lk_track_launches_k6_once_per_call(dev):
+    from video_stab_tpu_torch.kernels import lk as klk
+    from video_stab_tpu_torch.ops.lk import lk_track
+    prev, curr = _lk_pair(dev, 96, 128, 4, (1.2, 0.7))
+    rng = np.random.default_rng(4)
+    pts = torch.from_numpy(rng.uniform(10, 90, (32, 2)).astype(
+        np.float32)).to(dev)
+    mask = torch.ones(32, dtype=torch.bool, device=dev)
+    before = klk.LAUNCHES
+    for k in range(3):
+        out, status, err = lk_track(prev, curr, pts, mask)
+        assert klk.LAUNCHES == before + k + 1
+    assert out.is_cuda and status.dtype == torch.bool
+    assert bool(torch.isfinite(out).all()) and int(status.sum()) > 16
+
+
+def test_lk_wrapper_rejects_bad_inputs(dev):
+    from video_stab_tpu_torch.kernels import lk as klk
+    from video_stab_tpu_torch.ops.lk import lk_planes
+    prev, curr = _lk_pair(dev, 96, 128, 5, (0.5, 0.5))
+    prev_planes, curr_planes = lk_planes(prev, curr, 2)
+    pts = torch.full((8, 2), 40.0, device=dev)
+    mask = torch.ones(8, dtype=torch.bool, device=dev)
+    args = (pts, mask, None, 15, 20, 0.03, 1e-4)
+    before = klk.LAUNCHES
+    with pytest.raises(ValueError, match="float32"):
+        klk.lk_levels([p.double() for p in prev_planes], curr_planes, *args)
+    with pytest.raises(ValueError, match="contiguous"):
+        klk.lk_levels(prev_planes, [c.t().contiguous().t()
+                                    for c in curr_planes], *args)
+    deep_prev, deep_curr = lk_planes(prev, curr, klk.MAX_LEVEL + 1)
+    with pytest.raises(ValueError, match="levels"):
+        klk.lk_levels(deep_prev, deep_curr, *args)
+    assert klk.LAUNCHES == before

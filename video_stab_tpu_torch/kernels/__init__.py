@@ -7,11 +7,15 @@ the JAX package (counterparts of ``video_stab_tpu/pallas/``):
 - ``enhance``  K4  pointwise enhancer, u8 -> u8   (pallas/enhance.py)
 - ``traj``     K5a trajectory box filter (median-padded, left window)
                K5b centered count-normalized box filter (pallas/traj.py)
+- ``lk``       K6  pyramidal LK Newton ladder, one launch (the in-kernel
+               LK probes K6a-K6d, tools/lk_kernel_proto.py and
+               tools/lk_inkernel_probe.py)
 
 Each module holds the kernels' wrappers, their plain PyTorch versions and
 a module-level launch counter per kernel (``warp.LAUNCHES`` and
 ``warp.HOMOGRAPHY_LAUNCHES``, ``features.LAUNCHES``, ``enhance.LAUNCHES``,
-``traj.CONVOLVE_LAUNCHES`` and ``traj.CENTERED_LAUNCHES``), which the
+``traj.CONVOLVE_LAUNCHES``, ``traj.CENTERED_LAUNCHES`` and
+``lk.LAUNCHES``), which the
 kernel's wrapper increments once per launch and nowhere else. A wrapper
 given a CUDA tensor launches the kernel or raises; a CPU tensor takes the
 plain version.

@@ -23,7 +23,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("warp.cu", "features.cu", "enhance.cu", "traj.cu")
+SOURCES = ("warp.cu", "features.cu", "enhance.cu", "traj.cu", "lk.cu")
 # --fmad=false: no multiply-add contraction anywhere, so every kernel's
 # float32 arithmetic is the same as its plain PyTorch version's.
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -44,6 +44,10 @@ _SIGNATURES = {
                       _P),
     # x, n, c, offset, window, pad, centered, r, out, stream
     "vs_box_window": (_P, _I, _I, _I, _I, _P, _I, _I, _P, _P),
+    # planes, sizes, n_levels, prev_pts, mask, init_pts, n, win, iters,
+    # eps2, min_eig_thresh, out_pts, status, err, stream
+    "vs_lk_track": (_P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P,
+                    _P),
 }
 
 _lock = threading.Lock()
