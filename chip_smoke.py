@@ -16,7 +16,8 @@ Phases (any failure is an uncaught exception and a nonzero exit):
    pair, 3 levels, 200 GFTT corners) at the tolerance of the plain version
    against JAX (identical status; tracked positions within max(1e-3, eps)
    and >= 95 % within 1e-3 px; err within 1e-2 where positions agree; at
-   eps = 0.03 and 1e-6). Then, per kernel and shape: ``device_us``, the
+   eps = 0.03 and 1e-6), with the Newton steps each point ran against the
+   plain version's count. Then, per kernel and shape: ``device_us``, the
    kernel's own time
    from ``torch.profiler`` (self CUDA time of its symbols over 64 launches,
    per launch; the emit warps and the enhancer cycle through 16 distinct
@@ -26,8 +27,12 @@ Phases (any failure is an uncaught exception and a nonzero exit):
    time (every kernel it launches) and call time the same two ways;
    ``bound_us``, the larger of the bytes (each input read once, each
    output written once) over 3.35 TB/s and the float32 operations over
-   67 TFLOP/s, with ``bound_share`` = bound / device time; and for K5b its
-   one-call yardstick, ``avg_pool1d``, timed the same two ways.
+   67 TFLOP/s, with ``bound_share`` = bound / device time; for K5b its
+   one-call yardstick, ``avg_pool1d``, timed the same two ways; and for
+   K6, which the latency of one point's dependent Newton steps bounds,
+   ``latency_floor_us`` (the most steps a point ran times a stated
+   per-step floor in cycles, plus the templates, at the SM clock
+   ``nvidia-smi`` reads while K6 runs) with ``floor_share``.
 4. The paths, each with the kernels' launch counters zeroed just before it
    and read just after (each kernel of the path must be > 0):
    a. ``ProcessingChain`` with exactly the ``__graft_entry__.entry()``
@@ -209,6 +214,15 @@ WARP_LIBRARY = ("none: grid_sample needs affine_grid, float NCHW and a "
                 "separate round, so it is not one call")
 
 
+def corner_input(torch, frame):
+    """K3's input at the main path's shape: a 1080p frame's mean gray at
+    540x960, float32."""
+    gray = frame.float().mean(dim=2)
+    return torch.nn.functional.interpolate(
+        gray[None, None], size=(540, 960), mode="bilinear",
+        align_corners=False)[0, 0].contiguous()
+
+
 def check_kernels(torch, dev) -> dict:
     """Phase 3: each kernel against its plain version at the path's shapes,
     then its device time, wrapper time, bound and yardstick."""
@@ -240,10 +254,7 @@ def check_kernels(torch, dev) -> dict:
 
     roll = rotation_matrix_2d(960.0, 540.0,
                               torch.tensor(2.0).to(dev))
-    gray = frame.float().mean(dim=2)
-    gray540 = torch.nn.functional.interpolate(
-        gray[None, None], size=(540, 960), mode="bilinear",
-        align_corners=False)[0, 0].contiguous()
+    gray540 = corner_input(torch, frame)
     gray540_u8 = torch.clamp(torch.round(gray540), 0, 255).to(
         torch.uint8).contiguous()
     a_roll = rotation_matrix_2d(480.0, 270.0, torch.tensor(2.0).to(dev))
@@ -300,8 +311,8 @@ def check_kernels(torch, dev) -> dict:
     k3 = timing(torch, "K3 corner_response 540x960",
                 lambda i: kfeat.corner_response_cuda(gray540),
                 lambda i: kfeat.corner_response_plain(gray540),
-                ["min_eig_kernel", "peak_kernel"], 540 * 960 * (4 + 4 + 1),
-                540 * 960 * CORNER_FLOPS, per_call=2)
+                ["corner_strip_kernel"], 540 * 960 * (4 + 4 + 1),
+                540 * 960 * CORNER_FLOPS)
     k3.update(max_abs_err=err_k3, library="none: no single call computes "
               "the min-eigenvalue response")
     results["corner_response"] = k3
@@ -423,6 +434,84 @@ def check_new_kernels(torch, dev, frame, cold) -> dict:
 # step the blend, the residual and b's two products and sums.
 LK_TEMPLATE_FLOPS, LK_STEP_FLOPS = 33, 14
 
+# K6's latency yardstick. A point's Newton steps are a dependent chain, so
+# the launch cannot end before its slowest point has run its steps one
+# after the other. Assumed latencies in SM cycles (Hopper: a shared-memory
+# read ~30, a dependent float32 operation ~4, a warp shuffle ~24, a block
+# barrier ~20, a read that hits L2 ~270). One step: the window offsets
+# from the position (8 dependent operations), one slab read, the blend
+# (4), the residual, product and sum (3), a 5-level shuffle tree (shuffle
+# + add each), the partials' exchange (barrier + read) and their 3 adds,
+# the 2x2 solve (2) and the move (1). One template: an L2 read, a staged
+# read, the blend (4), G's product and sum (2), the tree, the exchange and
+# its adds, and the inverse (a square root and two divides, ~60).
+LK_CYCLES = dict(smem=30, op=4, shuffle=24, barrier=20, l2=270)
+LK_TREE_CYCLES = 5 * (LK_CYCLES["shuffle"] + LK_CYCLES["op"])
+LK_EXCHANGE_CYCLES = (LK_CYCLES["barrier"] + LK_CYCLES["smem"]
+                      + 3 * LK_CYCLES["op"])
+LK_STEP_FLOOR_CYCLES = (LK_CYCLES["smem"] + (8 + 4 + 3 + 2 + 1)
+                        * LK_CYCLES["op"] + LK_TREE_CYCLES
+                        + LK_EXCHANGE_CYCLES)
+LK_TEMPLATE_FLOOR_CYCLES = (LK_CYCLES["l2"] + LK_CYCLES["smem"]
+                            + (4 + 2) * LK_CYCLES["op"] + LK_TREE_CYCLES
+                            + LK_EXCHANGE_CYCLES + 60)
+
+
+def sm_clock_mhz(torch, fn, seconds: float = 1.0) -> float:
+    """The SM clock ``nvidia-smi`` reads while another thread calls fn(i)
+    back to back (an idle card reads a lower clock)."""
+    import threading
+    stop = threading.Event()
+
+    def load():
+        i = 0
+        while not stop.is_set():
+            fn(i)
+            i += 1
+
+    worker = threading.Thread(target=load)
+    worker.start()
+    try:
+        time.sleep(seconds / 2)
+        proc = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+             "nounits"], capture_output=True, text=True, timeout=60,
+            check=True)
+    finally:
+        stop.set()
+        worker.join()
+        torch.cuda.synchronize()
+    return float(proc.stdout.strip().splitlines()[0])
+
+
+def lk_steps_report(label, got_steps, want_steps, got, want, budget) -> dict:
+    """K6's Newton steps per point against the plain version's count: the
+    distribution, and how many points whose positions agree within 1e-3 px
+    ran another number of steps (one step apart happens at the eps freeze,
+    where |d|^2 sits at eps^2; it is reported, not failed)."""
+    k = got_steps.cpu().numpy().astype(int)
+    p = want_steps.cpu().numpy().astype(int)
+    same_pos = ((got[0] - want[0]).abs().max(dim=1).values < 1e-3) \
+        .cpu().numpy()
+    diff = np.abs(k - p)[same_pos]
+    row = {"min": int(k.min()), "median": float(np.median(k)),
+           "p90": float(np.percentile(k, 90)), "max": int(k.max()),
+           "mean": float(k.mean()), "budget": budget,
+           "share_full_budget": float((k == budget).mean()),
+           "equal_to_plain": int((diff == 0).sum()),
+           "one_step_apart": int((diff == 1).sum()),
+           "further_apart": int((diff > 1).sum()),
+           "points_compared": int(same_pos.sum())}
+    print(f"K6 {label}: Newton steps per point min {row['min']}, median "
+          f"{row['median']:.1f}, p90 {row['p90']:.1f}, max {row['max']} of a "
+          f"budget of {budget} ({row['share_full_budget'] * 100:.1f}% of "
+          f"points ran it all); against the plain count over "
+          f"{row['points_compared']} points with equal positions: "
+          f"{row['equal_to_plain']} equal, {row['one_step_apart']} one step "
+          f"apart, {row['further_apart']} further")
+    assert k.min() >= 0 and k.max() <= budget, (k.min(), k.max(), budget)
+    return row
+
 
 def lk_agreement(label, got, want, eps) -> dict:
     """K6 against the plain version at the plain version's tolerance
@@ -448,14 +537,13 @@ def lk_agreement(label, got, want, eps) -> dict:
     return row
 
 
-def check_lk(torch, dev) -> dict:
-    """Phase 3, K6: the LK Newton ladder at the main path's shape (a real
-    1080p frame pair as 540x960 analysis gray, 3 levels, the re-detect's
-    200 GFTT corners) against lk_levels_plain on the same planes."""
+def lk_inputs(torch, dev):
+    """K6's inputs at the main path's shape: a 1080p frame pair as 540x960
+    analysis gray, the re-detect's 200 GFTT corners, the planes of 3
+    levels. -> (params, prev, curr, pts, mask, (prev_planes, curr_planes))"""
     from video_stab_tpu_torch.core.params import StabilizerParams
     from video_stab_tpu_torch.core.stabilizer import (_analysis_gray,
                                                       _detect_features)
-    from video_stab_tpu_torch.kernels import lk as klk
     from video_stab_tpu_torch.ops.lk import lk_planes
 
     sp = StabilizerParams()
@@ -463,30 +551,63 @@ def check_lk(torch, dev) -> dict:
     prev, curr = (_analysis_gray(sp, f.float()) for f in pair)
     pts, mask = _detect_features(sp, prev, redetect=True)
     assert int(mask.sum()) == sp.max_corners, int(mask.sum())
-    planes = lk_planes(prev, curr, sp.lk_levels)
+    return sp, prev, curr, pts, mask, lk_planes(prev, curr, sp.lk_levels)
+
+
+def check_lk(torch, dev) -> dict:
+    """Phase 3, K6: the LK Newton ladder at the main path's shape (3
+    levels, 200 points) against lk_levels_plain on the same planes."""
+    from video_stab_tpu_torch.kernels import lk as klk
+
+    sp, prev, curr, pts, mask, planes = lk_inputs(torch, dev)
     args = (pts, mask, None, sp.lk_window, sp.lk_iters)
     label = (f"lk_track {prev.shape[0]}x{prev.shape[1]} "
              f"{sp.lk_levels + 1} levels {int(mask.sum())} points")
     rows = {}
+    steps = {}
+    levels = sp.lk_levels + 1
+    # The step budget: lk_iters rounded up to whole rounds at each level
+    # (4 rounds at the top level, 2 below).
+    budget = (4 * -(-sp.lk_iters // 4)
+              + (levels - 1) * 2 * -(-sp.lk_iters // 2))
     for eps in (1e-6, 0.03):
-        got = klk.lk_levels_cuda(*planes, *args, eps, 1e-4)
-        want = klk.lk_levels_plain(*planes, *args, eps, 1e-4)
+        k_steps, p_steps = (torch.empty(pts.shape[0], dtype=torch.int32,
+                                        device=dev) for _ in range(2))
+        got = klk.lk_levels_cuda(*planes, *args, eps, 1e-4, steps=k_steps)
+        want = klk.lk_levels_plain(*planes, *args, eps, 1e-4, steps=p_steps)
         torch.cuda.synchronize()
         rows[eps] = lk_agreement(label, got, want, eps)
+        steps[eps] = lk_steps_report(f"{label} eps={eps}", k_steps, p_steps,
+                                     got, want, budget)
     n, win2 = pts.shape[0], (sp.lk_window + 1) ** 2
-    levels, npix = sp.lk_levels + 1, sp.lk_window ** 2
+    npix = sp.lk_window ** 2
     # Bytes: per point and level the template's footprint in the three
     # prev planes and one search window's in curr; points, mask, outputs.
     nbytes = n * (levels * 4 * win2 * 4 + 8 + 1 + 8 + 1 + 4)
-    # Operations: the template and the full step budget (an upper count;
-    # the bytes bound it either way).
-    flops = n * npix * (levels * LK_TEMPLATE_FLOPS
-                        + levels * sp.lk_iters * LK_STEP_FLOPS)
+    # Operations: the templates and the Newton steps this run's points ran.
+    flops = npix * (n * levels * LK_TEMPLATE_FLOPS
+                    + steps[0.03]["mean"] * n * LK_STEP_FLOPS)
     k6 = timing(torch, f"K6 {label}",
                 lambda i: klk.lk_levels_cuda(*planes, *args, 0.03, 1e-4),
                 lambda i: klk.lk_levels_plain(*planes, *args, 0.03, 1e-4),
                 ["lk_track_kernel"], nbytes, flops)
+    # The second yardstick, one that can be approached: the slowest point's
+    # dependent steps and the templates, at the clock the card runs K6 at.
+    clock = sm_clock_mhz(
+        torch, lambda i: klk.lk_levels_cuda(*planes, *args, 0.03, 1e-4))
+    floor_cycles = (steps[0.03]["max"] * LK_STEP_FLOOR_CYCLES
+                    + levels * LK_TEMPLATE_FLOOR_CYCLES)
+    k6["sm_clock_mhz"] = clock
+    k6["latency_floor_us"] = floor_cycles / clock
+    k6["floor_share"] = k6["latency_floor_us"] / k6["device_us"]
+    k6["step_floor_cycles"] = LK_STEP_FLOOR_CYCLES
+    k6["template_floor_cycles"] = LK_TEMPLATE_FLOOR_CYCLES
+    print(f"K6 {label}: latency floor {k6['latency_floor_us']:.3f} us "
+          f"({steps[0.03]['max']} steps x {LK_STEP_FLOOR_CYCLES} cycles + "
+          f"{levels} templates x {LK_TEMPLATE_FLOOR_CYCLES} cycles at "
+          f"{clock:.0f} MHz), floor_share {k6['floor_share']:.3f}")
     k6.update(rows[0.03], shape=label, eps_1e_6=rows[1e-6],
+              steps=steps[0.03], steps_eps_1e_6=steps[1e-6],
               library="none: no PyTorch call computes LK",
               lk_track_launches=lk_track_launches(torch, prev, curr, pts,
                                                   mask))
@@ -1134,7 +1255,10 @@ def main() -> int:
                "library_device_us": k.get("library_device_us")}
         for extra in ("cases", "shapes", "library_max_abs_diff", "shape",
                       "tracked", "status_flips", "within_1e-3",
-                      "err_max_abs_diff", "eps_1e_6", "lk_track_launches"):
+                      "err_max_abs_diff", "eps_1e_6", "lk_track_launches",
+                      "steps", "steps_eps_1e_6", "latency_floor_us",
+                      "floor_share", "sm_clock_mhz", "step_floor_cycles",
+                      "template_floor_cycles"):
             if extra in k:
                 row[extra] = k[extra]
         if name == "lk_track":

@@ -138,6 +138,36 @@ def test_corner_kernel_matches_plain(dev):
     assert torch.equal(peak, p_peak)
 
 
+# A warp of K3 owns 26 output columns and 16 output rows (csrc/features.cu).
+@pytest.mark.parametrize("shape", [
+    (37, 53),                   # no strip divides it
+    (1, 90), (90, 1), (1, 1),   # one-pixel axes reflect onto themselves
+    (2, 2), (3, 200),           # the wrapped halo runs around the frame
+    (16, 26), (32, 104),        # exactly one strip; exactly one block row
+    (540, 960),                 # the main path's analysis gray
+])
+def test_corner_kernel_odd_shapes(dev, shape):
+    """K3 against its plain version: response within 1e-5 (0 expected: the
+    same rounded operations in the same order), the peak mask identical,
+    exactly one launch per call."""
+    from video_stab_tpu_torch.kernels import features as kfeat
+    h, w = shape
+    rng = np.random.default_rng(h * 1000 + w)
+    # (a texture needs a few pixels: cut small frames out of a larger one)
+    gray = (_textured(max(h, 8), max(w, 8), h + w)[:h, :w]
+            + rng.integers(-9, 10, (h, w)))
+    gray = torch.from_numpy(np.clip(np.round(gray), 0, 255).astype(
+        np.float32)).to(dev)
+    before = kfeat.LAUNCHES
+    resp, peak = kfeat.corner_response(gray)
+    assert kfeat.LAUNCHES == before + 1
+    p_resp, p_peak = kfeat.corner_response_plain(gray)
+    torch.cuda.synchronize()
+    assert resp.shape == peak.shape == (h, w)
+    assert float((resp - p_resp).abs().max()) <= 1e-5
+    assert torch.equal(peak, p_peak)
+
+
 @pytest.mark.parametrize("layout", ["contiguous", "offset view"])
 @pytest.mark.parametrize("wb", [False, True])
 def test_enhance_kernel_matches_plain(dev, wb, layout):
@@ -286,4 +316,81 @@ def test_lk_wrapper_rejects_bad_inputs(dev):
     deep_prev, deep_curr = lk_planes(prev, curr, klk.MAX_LEVEL + 1)
     with pytest.raises(ValueError, match="levels"):
         klk.lk_levels(deep_prev, deep_curr, *args)
+    assert klk.LAUNCHES == before
+
+
+@pytest.mark.parametrize("case", ["96x128", "540x960", "96x128 win 21",
+                                  "96x128 5 levels", "96x128 eps 1e-6"])
+def test_lk_kernel_counts_steps_like_plain(dev, case):
+    """K6's ``steps`` output against the plain version's count: equal for
+    every point whose position agrees within 1e-3 px, but for points one
+    step apart at the eps freeze (|d|^2 within rounding of eps^2), at most
+    2 % of them (at eps = 0.03); never above the budget; 0 for masked
+    points. With win 21
+    a thread owns two runs of the window; 5 levels is a deeper pyramid
+    than the main path's."""
+    from video_stab_tpu_torch.kernels import lk as klk
+    from video_stab_tpu_torch.ops.features import good_features_to_track
+    from video_stab_tpu_torch.ops.lk import lk_planes
+    rng = np.random.default_rng(6)
+    win = 21 if "win 21" in case else 15
+    max_level = 4 if "5 levels" in case else 2
+    eps = 1e-6 if "eps" in case else 0.03
+    if case.startswith("96x128"):
+        h, w, n = 96, 128, 48
+        prev, curr = _lk_pair(dev, h, w, 1, (2.3, -1.6))
+        pts = torch.from_numpy(np.stack(
+            [rng.uniform(-5, w + 5, n), rng.uniform(-5, h + 5, n)],
+            axis=1).astype(np.float32)).to(dev)
+        mask = torch.from_numpy(rng.random(n) > 0.1).to(dev)
+    else:
+        prev, curr = _lk_pair(dev, 540, 960, 2, (6.4, -9.7))
+        pts, mask = good_features_to_track(prev, max_corners=200,
+                                           quality_level=0.01,
+                                           min_distance=15.0)
+    n = pts.shape[0]
+    planes = lk_planes(prev, curr, max_level)
+    k_steps = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    p_steps = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    before = klk.LAUNCHES
+    got = klk.lk_levels_cuda(*planes, pts, mask, None, win, 20, eps, 1e-4,
+                             steps=k_steps)
+    assert klk.LAUNCHES == before + 1
+    want = klk.lk_levels_plain(*planes, pts, mask, None, win, 20, eps, 1e-4,
+                               steps=p_steps)
+    torch.cuda.synchronize()
+    _check_lk(got, want, eps)
+    k, p = k_steps.cpu().numpy(), p_steps.cpu().numpy()
+    budget = 4 * 5 + max_level * 2 * 10
+    assert k.min() >= 0 and k.max() <= budget
+    assert (k[~mask.cpu().numpy()] == 0).all()
+    same = ((got[0] - want[0]).abs().max(dim=1).values < 1e-3).cpu().numpy()
+    diff = np.abs(k - p)[same]
+    if eps >= 0.03:
+        assert (diff <= 1).all(), diff.max()
+        assert (diff == 1).sum() <= max(1, 0.02 * same.sum()), \
+            (diff == 1).sum()
+    else:
+        # At eps = 1e-6 a point freezes when its step is at the rounding
+        # level of the 225-term sums, whose order differs: the two freeze
+        # some steps apart for a minority of points (4 of 200 at 540 x 960,
+        # 8 of 48 of the random points here).
+        assert np.median(diff) == 0 and (diff == 0).mean() >= 0.7, diff
+
+
+def test_lk_steps_argument_is_checked(dev):
+    from video_stab_tpu_torch.kernels import lk as klk
+    from video_stab_tpu_torch.ops.lk import lk_planes
+    prev, curr = _lk_pair(dev, 96, 128, 5, (0.5, 0.5))
+    planes = lk_planes(prev, curr, 2)
+    pts = torch.full((8, 2), 40.0, device=dev)
+    mask = torch.ones(8, dtype=torch.bool, device=dev)
+    before = klk.LAUNCHES
+    with pytest.raises(ValueError, match="int32"):
+        klk.lk_levels_cuda(*planes, pts, mask, None, 15, 20, 0.03, 1e-4,
+                           steps=torch.zeros(8, device=dev))
+    with pytest.raises(ValueError, match="steps"):
+        klk.lk_levels_cuda(*planes, pts, mask, None, 15, 20, 0.03, 1e-4,
+                           steps=torch.zeros(7, dtype=torch.int32,
+                                             device=dev))
     assert klk.LAUNCHES == before

@@ -15,10 +15,17 @@
   cases ``tests/test_torch_ops.py::test_lk_track`` lacks: initial guesses,
   every point masked, a flat frame (``lvl_ok`` fails everywhere) and points
   far outside the frame, at ``test_lk_track``'s tolerances.
-- A mirror of the CUDA kernel's gather (windows read straight from the
-  plane with clamped indices and origins, no slab; the hat weights as the
-  kernel forms them) against ``lk_levels_plain``, at the tolerance the card
-  tests hold the kernel to.
+- A mirror of the plane reads behind the CUDA kernel's slabs (windows
+  read straight from the plane with clamped indices and origins; the hat
+  weights as the kernel forms them) against ``lk_levels_plain``, at the
+  tolerance the card tests hold the kernel to.
+- A mirror of the kernel's Newton step (a patch of the round's slab
+  staged with the kernel's row stride and aligned copies, staged again
+  when the window leaves it, each thread's run of two window pixels blended
+  rows first with the shared middle column, b summed per thread, by a
+  butterfly per warp, then over the warps) against ``newton_steps_plain``
+  within 1e-4 px, the tolerance of the K6d test above.
+- ``lk_levels_plain(..., steps=)``: the Newton steps each point ran.
 """
 
 import ast
@@ -289,3 +296,236 @@ def test_cuda_wrapper_refuses_cpu_tensors_and_deep_pyramids():
     with pytest.raises(ValueError, match="levels"):
         klk.lk_levels_cuda([planes[0][0]] * (klk.MAX_LEVEL + 2),
                            [planes[1][0]] * (klk.MAX_LEVEL + 2), *args)
+
+
+# ------------------------- a mirror of the kernel's staged Newton step --
+
+K_THREADS, K_RUN, K_STRIDE, K_DRIFT = 128, 2, 48, 8   # csrc/lk.cu
+
+
+def _stage(plane, y0, x0, size):
+    """csrc/lk.cu ``stage``: the size x size slab at (y0, x0), replicate
+    border, rows K_STRIDE apart; in aligned 4-float pieces from the aligned
+    column left of x0 where the slab lies between the plane's left and
+    right edge and the plane's rows are a multiple of 4 wide. What no
+    thread writes stays NaN. Returns (slab, the column of its rows that
+    holds the slab's first column)."""
+    h, w = plane.shape
+    s = np.full(size * K_STRIDE + 4, np.nan, np.float32)
+    ry = np.clip(y0 + np.arange(size), 0, h - 1)
+    if w % 4 == 0 and x0 >= 0 and x0 + size <= w:
+        shift = x0 & 3
+        cols = np.arange(4 * ((shift + size + 3) >> 2))
+        rx = x0 - shift + cols
+        assert rx.max() < w and cols.max() < K_STRIDE
+    else:
+        shift = 0
+        cols = np.arange(size)
+        rx = np.clip(x0 + cols, 0, w - 1)
+    rows = np.arange(size)[:, None] * K_STRIDE + cols[None, :]
+    s[rows] = plane[ry[:, None], rx[None, :]]
+    return s, shift
+
+
+def _np_taps(c):
+    f = np.floor(c)
+    one = np.float32(1.0)
+    return (int(f), np.maximum(np.float32(0), one - np.abs(c + (-f))),
+            np.maximum(np.float32(0), one - np.abs(c + (-(f + one)))))
+
+
+def _block_sum(vals):
+    """(threads,) float32 -> the kernel's block sum: a xor butterfly in
+    each warp, then the warps' partials in warp order."""
+    v = vals.reshape(-1, 32).astype(np.float32)
+    lanes = np.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        v = v + v[:, lanes ^ o]
+    assert (v == v[:, :1]).all()                 # the same bits on every lane
+    total = v[0, 0]
+    for part in v[1:, 0]:
+        total = total + part
+    return total
+
+
+def _staged_newton(plane, c0, tmpl, neg_inv, pt, win, drift, iters, eps):
+    """One round of one point, as the kernel runs it. plane (h, w); c0 the
+    slab's integer corner [y, x]; tmpl (3, win, win); pt [y, x]."""
+    f32 = np.float32
+    h, w = plane.shape
+    stride = K_STRIDE
+    half = f32((win - 1) * 0.5)
+    o = (c0 + half).astype(f32)
+    y0 = int(np.clip(c0[0], -128.0, h))
+    x0 = int(np.clip(c0[1], -128.0, w))
+    # The kernel stages a patch of the round's slab: K_DRIFT pixels around
+    # the window it is staged for, staged again when a window leaves it.
+    patch = win + 1 + 2 * K_DRIFT
+    py0, px0 = y0 + drift - K_DRIFT, x0 + drift - K_DRIFT
+    slab, shift = _stage(plane, py0, px0, patch)
+    restaged = 0
+    rpr = (win + K_RUN - 1) // K_RUN
+    n_thr = K_THREADS * -(-win * rpr // K_THREADS)
+    run = np.arange(n_thr)
+    i, j = run // rpr, (run % rpr) * K_RUN
+    nv = np.where(i < win, np.minimum(win - j, K_RUN), 0)
+    off = np.where(nv > 0, i * stride + j, 0)
+    pt = pt.astype(f32).copy()
+    done = False
+    steps = 0
+    cmax = f32(2 * drift)
+    for _ in range(iters):
+        if done:
+            break
+        ky, wy0, wy1 = _np_taps(np.clip(pt[0] - o[0], f32(0), cmax))
+        kx, wx0, wx1 = _np_taps(np.clip(pt[1] - o[1], f32(0), cmax))
+        ry, rx = y0 + ky - py0, x0 + kx - px0
+        if not (0 <= ry <= 2 * K_DRIFT and 0 <= rx <= 2 * K_DRIFT):
+            py0, px0 = py0 + ry - K_DRIFT, px0 + rx - K_DRIFT
+            ry = rx = K_DRIFT
+            slab, shift = _stage(plane, py0, px0, patch)
+            restaged += 1
+        base = ry * stride + rx + shift + off
+        # Thread t owns runs t + K_THREADS * k and sums them in that order.
+        bx = np.zeros(K_THREADS, f32)
+        by = np.zeros(K_THREADS, f32)
+        for k in range(n_thr // K_THREADS):
+            own = slice(k * K_THREADS, (k + 1) * K_THREADS)
+            t = [wy0 * slab[base[own] + m]
+                 + wy1 * slab[base[own] + stride + m]
+                 for m in range(K_RUN + 1)]
+            for m in range(K_RUN):
+                live = m < nv[own]
+                jv = t[m] * wx0 + t[m + 1] * wx1
+                ii = np.minimum(i[own], win - 1)
+                jj = np.minimum(j[own] + m, win - 1)
+                res = jv - tmpl[0][ii, jj]
+                assert np.isfinite(res[live]).all()   # only staged pixels
+                bx = np.where(live, bx + tmpl[1][ii, jj] * res, bx)
+                by = np.where(live, by + tmpl[2][ii, jj] * res, by)
+        bsx, bsy = _block_sum(bx), _block_sum(by)
+        d = np.array([neg_inv[0, 0] * bsx + neg_inv[0, 1] * bsy,
+                      neg_inv[1, 0] * bsx + neg_inv[1, 1] * bsy], f32)
+        pt = pt + d
+        done = bool(d[0] * d[0] + d[1] * d[1] <= f32(eps * eps))
+        steps += 1
+    return pt, done, steps, restaged
+
+
+@pytest.mark.parametrize("name,win,level,push,iters", [
+    ("shift", 15, 0, 0.0, 10),         # a converging round
+    ("shift", 15, 2, 0.0, 5),          # the top level's 64 x 64 slab
+    ("shift", 15, 0, 40.0, 2),         # the window at the clamp c = 2 * drift
+    ("shift", 15, 2, 40.0, 2),         # and at the top level: a new patch
+    ("far outside", 15, 0, 0.0, 3),    # slabs hanging over the frame's edge
+    ("shift", 21, 0, 0.0, 4),          # two runs a thread
+    ("shift", 6, 1, 0.0, 4),           # an even window: no odd last pixel
+])
+def test_staged_newton_mirror_matches_plain(name, win, level, push, iters):
+    prev, curr, pts, mask, _ = _case(name)
+    prev_planes, curr_planes = tlk.lk_planes(
+        torch.from_numpy(prev), torch.from_numpy(curr), 2)
+    drift = klk.DRIFT_TOP if level == 2 else klk.DRIFT
+    s_c = win + 1 + 2 * drift
+    half = (win - 1) * 0.5
+    tpts = torch.from_numpy(pts) / 2 ** level
+    t0 = torch.floor(tpts - half)
+    tmpl = klk._interp_window(
+        klk._slab(prev_planes[level], t0[:, 1].to(torch.int64),
+                  t0[:, 0].to(torch.int64), win + 1),
+        (tpts - half - t0).flip(1), win)
+    neg_inv, lvl_ok = klk._inverse(tmpl, win, 1e-4)
+    guess = tpts.flip(1)                                  # [y, x]
+    c0 = torch.floor(guess - half) - drift
+    start = guess + push
+    c_slab = klk._slab(curr_planes[level][None], c0[:, 0].to(torch.int64),
+                       c0[:, 1].to(torch.int64), s_c)[:, 0]
+    eps = 0.03
+    want, want_done = klk.newton_steps_plain(
+        c_slab, tmpl[:, 0], tmpl[:, 1:], neg_inv, start, iters, eps,
+        clamp=s_c - win - 1.0, origin=c0 + half, done=(~lvl_ok)[:, None])
+    checked = 0
+    hanging = 0
+    restaged = 0
+    h, w = curr_planes[level].shape
+    for q in np.flatnonzero(lvl_ok.numpy()):
+        got, done, steps, n_re = _staged_newton(
+            curr_planes[level].numpy(), c0[q].numpy(), tmpl[q].numpy(),
+            neg_inv[q].numpy(), start[q].numpy(), win, drift, iters, eps)
+        np.testing.assert_allclose(got, want[q].numpy(), atol=1e-4, rtol=0)
+        assert done == bool(want_done[q, 0])
+        assert 1 <= steps <= iters
+        checked += 1
+        restaged += n_re
+        hanging += bool(c0[q, 0] < 0 or c0[q, 1] < 0 or c0[q, 0] + s_c > h
+                        or c0[q, 1] + s_c > w)
+    assert checked >= 10, checked
+    if name == "far outside" or level == 2:
+        assert hanging > 0
+    if push:
+        # Every window sat at the clamp on its first step; at the top
+        # level that is outside the patch staged for the round's start.
+        assert bool(((start - (c0 + half)) > 2 * drift).all())
+        assert restaged >= checked if level == 2 else restaged == 0
+
+
+# ------------------------------------------------------ the steps count --
+
+def _run_steps(name, iters=20, eps=0.03, levels=2):
+    prev, curr, pts, mask, init = _case(name)
+    planes = tlk.lk_planes(torch.from_numpy(prev), torch.from_numpy(curr),
+                           levels)
+    args = (torch.from_numpy(pts), torch.from_numpy(mask),
+            None if init is None else torch.from_numpy(init), 15, iters, eps,
+            1e-4)
+    steps = torch.full((len(pts),), -7, dtype=torch.int32)
+    got = klk.lk_levels_plain(*planes, *args, steps=steps)
+    want = klk.lk_levels_plain(*planes, *args)
+    for g, w_ in zip(got, want):            # passing steps changes nothing
+        assert torch.equal(g, w_)
+    return steps.numpy(), mask, got
+
+
+def _budget(iters, levels):
+    """The most steps a point can run: ``iters`` rounded up to whole
+    rounds (4 at the top level, 2 below) at each of ``levels + 1``."""
+    return 4 * -(-iters // 4) + levels * 2 * -(-iters // 2)
+
+
+@pytest.mark.parametrize("name", ["shift", "init_pts", "far outside"])
+def test_steps_counts_are_within_the_budget(name):
+    steps, mask, got = _run_steps(name)
+    assert (steps[~mask] == 0).all()                       # masked: no step
+    assert (steps >= 0).all() and (steps <= _budget(20, 2)).all()
+    tracked = got[1].numpy()
+    # A tracked point ran at least one step at each of the three levels,
+    # and at eps = 0.03 on a consistent shift it froze long before the end.
+    assert (steps[tracked] >= 3).all()
+    assert np.median(steps[tracked]) < _budget(20, 2) / 2
+
+
+@pytest.mark.parametrize("iters", [20, 7, 1, 0])
+def test_steps_of_a_point_that_never_converges_is_the_budget(iters):
+    """eps = 0: |d|^2 <= 0 only once a step is exactly zero, so trackable
+    points run every round of every level."""
+    steps, mask, got = _run_steps("shift", iters=iters, eps=0.0)
+    assert (steps <= _budget(iters, 2)).all()
+    assert (steps[~mask] == 0).all()
+    assert (steps[mask] == _budget(iters, 2)).sum() >= 0.5 * mask.sum()
+
+
+@pytest.mark.parametrize("name", ["flat frame", "all masked"])
+def test_steps_of_untrackable_points_are_zero(name):
+    """A flat frame fails lvl_ok at every level; a masked point is never
+    live: neither runs a step."""
+    steps, _, _ = _run_steps(name)
+    assert (steps == 0).all()
+
+
+def test_steps_wrapper_checks():
+    prev, curr, pts, mask, _ = _case("shift")
+    planes = tlk.lk_planes(torch.from_numpy(prev), torch.from_numpy(curr), 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        klk.lk_levels_cuda(*planes, torch.from_numpy(pts),
+                           torch.from_numpy(mask), None, 15, 20, 0.03, 1e-4,
+                           steps=torch.zeros(len(pts), dtype=torch.int32))

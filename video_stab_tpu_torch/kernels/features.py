@@ -66,8 +66,8 @@ def corner_response_plain(gray: torch.Tensor
 
 def corner_response_cuda(gray: torch.Tensor
                          ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch K3 (response, then the wrapped peak test) on the current
-    stream."""
+    """Launch K3 on the current stream: one launch, a shared-memory tile
+    per block, for the response and the wrapped peak test."""
     global LAUNCHES
     _lib.require_cuda(gray, "corner_response gray", torch.float32, (2,))
     h, w = gray.shape

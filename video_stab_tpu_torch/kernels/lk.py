@@ -17,12 +17,14 @@ the level hand-off, and at level 0 the final ``err`` window and the
 ``l = 0 .. max_level`` a (3, Hl, Wl) float32 stack [prev, d/dx, d/dy] and a
 (Hl, Wl) float32 current plane, every value already rounded to bfloat16
 (as the JAX package's slab matmuls round them). A CUDA tensor launches K6
-(one warp per point) or raises; a CPU tensor takes ``lk_levels_plain``.
+(one block per point) or raises; a CPU tensor takes ``lk_levels_plain``.
 ``LAUNCHES`` counts K6 launches.
 
 The plain version runs every round's full step budget with converged points
 frozen; the kernel stops a point once it has converged. Frozen points never
-move, so both give the JAX early exit's output.
+move, so both give the JAX early exit's output. Both can report how many
+Newton steps each point ran before it froze (``steps=``, a measurement
+hook: the ladder's callers do not pass it).
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ LAUNCHES = 0    # K6 launches since import (or the last reset)
 DRIFT = 8       # per-level Newton drift budget (px) below the top level
 DRIFT_TOP = 24  # and at the top level
 MAX_LEVEL = 5   # the deepest pyramid level K6 takes (csrc/lk.cu kMaxLevels)
-MAX_WIN = 22    # the largest window K6 takes: 16 window pixels per lane
+MAX_WIN = 22    # the largest window K6 takes (csrc/lk.cu kMaxWin)
 
 
 def _slab(img: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor, s: int
@@ -95,6 +97,8 @@ def newton_steps_plain(slab: torch.Tensor, i_win: torch.Tensor,
                        clamp: Optional[float] = None,
                        origin: Optional[torch.Tensor] = None,
                        done: Optional[torch.Tensor] = None,
+                       steps: Optional[torch.Tensor] = None,
+                       live: Optional[torch.Tensor] = None,
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """``iters`` Newton steps of every point over its (N, S_R, S_C) slab (K6d,
     ``tools/lk_inkernel_probe.py:kernel_newton``).
@@ -105,13 +109,18 @@ def newton_steps_plain(slab: torch.Tensor, i_win: torch.Tensor,
     template's [d/dx, d/dy]; takes the step ``d = neg_inv @ b`` with
     ``neg_inv`` (N, 2, 2) = -G^-1 in rows (dy, dx); moves the points that are
     not ``done`` (N, 1) bool by d; and freezes a point once ``|d|^2 <=
-    eps^2``. cyx: (N, 2) [y, x]. Returns (cyx, done)."""
+    eps^2``. cyx: (N, 2) [y, x]. With ``steps`` (N,) int32, each step adds
+    one for every point that is ``live`` (N,) bool and not yet ``done``.
+    Returns (cyx, done)."""
     n, win = i_win.shape[0], i_win.shape[-1]
     g_flat = g.reshape(n, 2, win * win)
     if done is None:
         done = torch.zeros((n, 1), dtype=torch.bool, device=cyx.device)
     slab = slab[:, None]
     for _ in range(iters):
+        if steps is not None:
+            running = ~done[:, 0] if live is None else live & ~done[:, 0]
+            steps += running.to(steps.dtype)
         c = cyx if origin is None else cyx - origin
         if clamp is not None:
             c = torch.clamp(c, 0.0, clamp)
@@ -152,10 +161,16 @@ def lk_levels_plain(prev_planes: Sequence[torch.Tensor],
                     prev_pts: torch.Tensor, pts_mask: torch.Tensor,
                     init_pts: Optional[torch.Tensor], win: int, iters: int,
                     eps: float, min_eig_thresh: float,
+                    steps: Optional[torch.Tensor] = None,
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K6 (any device): the Newton ladder from the
-    top level down. Returns (curr_pts (N, 2) (x, y), status (N,) bool,
-    err (N,))."""
+    top level down. ``steps``, a preallocated (N,) int32 tensor, receives
+    the Newton steps each point ran over all levels: a point runs a step
+    while it is unmasked, every level so far was trackable and it has not
+    frozen at this level. Returns (curr_pts (N, 2) (x, y), status (N,)
+    bool, err (N,))."""
+    if steps is not None:
+        steps.zero_()
     max_level = len(prev_planes) - 1
     h, w = curr_planes[0].shape
     half = (win - 1) * 0.5
@@ -195,7 +210,8 @@ def lk_levels_plain(prev_planes: Sequence[torch.Tensor],
                            c0[:, 1].to(torch.int64), s_c)[:, 0]
             pt, done = newton_steps_plain(
                 c_slab, i_win, tmpl[:, 1:], neg_inv, pt, iters_per, eps,
-                clamp=s_c - win - 1.0, origin=c0 + half, done=done)
+                clamp=s_c - win - 1.0, origin=c0 + half, done=done,
+                steps=steps, live=ok)
         pt = pt.flip(1)                                          # [x, y]
         ok = ok & lvl_ok
         guess = torch.where(ok[:, None], pt, guess)
@@ -240,9 +256,10 @@ def lk_levels_cuda(prev_planes: Sequence[torch.Tensor],
                    prev_pts: torch.Tensor, pts_mask: torch.Tensor,
                    init_pts: Optional[torch.Tensor], win: int, iters: int,
                    eps: float, min_eig_thresh: float,
+                   steps: Optional[torch.Tensor] = None,
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K6 on the current stream: every level, round and step of
-    every point in one launch."""
+    every point in one launch. ``steps`` as in ``lk_levels_plain``."""
     global LAUNCHES
     n_levels = len(prev_planes)
     if not 1 <= n_levels <= MAX_LEVEL + 1 or len(curr_planes) != n_levels:
@@ -261,6 +278,11 @@ def lk_levels_cuda(prev_planes: Sequence[torch.Tensor],
         _lib.require_cuda(init_pts, "lk init_pts", torch.float32, (2,))
         if init_pts.shape != prev_pts.shape:
             raise ValueError(f"lk_levels: init_pts {tuple(init_pts.shape)}")
+    if steps is not None:
+        _lib.require_cuda(steps, "lk steps", torch.int32, (1,))
+        if steps.shape[0] != n or steps.device != prev_pts.device:
+            raise ValueError(f"lk_levels: steps {tuple(steps.shape)} on "
+                             f"{steps.device}")
     ptrs = []
     sizes = []
     for level, (stk, cur) in enumerate(zip(prev_planes, curr_planes)):
@@ -288,7 +310,8 @@ def lk_levels_cuda(prev_planes: Sequence[torch.Tensor],
         prev_pts.data_ptr(), pts_mask.data_ptr(),
         None if init_pts is None else init_pts.data_ptr(), n, win, iters,
         eps * eps, min_eig_thresh, out.data_ptr(), status.data_ptr(),
-        err.data_ptr(), _lib.stream_handle(dev))
+        err.data_ptr(), None if steps is None else steps.data_ptr(),
+        _lib.stream_handle(dev))
     _lib.check(rc, "lk_track")
     LAUNCHES += 1
     return out, status, err

@@ -36,8 +36,13 @@ def correlate_1d(x: torch.Tensor, kernel: Sequence[float], dim: int
     p = len(kernel) // 2
     xt = x.movedim(dim, -1)
     lead = xt.shape[:-1]
-    xp = F.pad(xt.reshape(1, -1, n), (p, p), mode="reflect").reshape(
-        *lead, n + 2 * p)
+    if p < n:
+        xp = F.pad(xt.reshape(1, -1, n), (p, p), mode="reflect").reshape(
+            *lead, n + 2 * p)
+    else:
+        # F.pad reflects less than one length only: a short axis (a
+        # one-pixel frame reflects onto itself) is gathered by index.
+        xp = xt[..., [reflect_101_index(i, n) for i in range(-p, n + p)]]
     out = None
     for t, k in enumerate(kernel):
         term = xp[..., t:t + n] * k
