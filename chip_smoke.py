@@ -9,7 +9,9 @@ Phases (any failure is an uncaught exception and a nonzero exit):
    Without a CUDA device the script exits 1 before printing any result.
 2. Build: the hand-written kernels (video_stab_tpu_torch/csrc/, five
    sources, one nvcc each, started together) are compiled from the
-   checkout's sources into build/torch_kernels/.
+   checkout's sources into build/torch_kernels/, and beside them, started
+   at the same time, the empty kernel of csrc/launch_floor.cu, which only
+   this script and tools/kernel_ab.py load.
 3. Kernels against their plain PyTorch versions on the card, at the shapes
    the main paths give them: K1, K2, K4 and K5 bit for bit, K3 within
    1e-5, K6 (the LK Newton ladder: 540x960 analysis gray of a real frame
@@ -28,7 +30,12 @@ Phases (any failure is an uncaught exception and a nonzero exit):
    ``bound_us``, the larger of the bytes (each input read once, each
    output written once) over 3.35 TB/s and the float32 operations over
    67 TFLOP/s, with ``bound_share`` = bound / device time; for K5b its
-   one-call yardstick, ``avg_pool1d``, timed the same two ways; and for
+   one-call yardstick, ``avg_pool1d``, timed the same two ways; for K5a
+   and K5b, which one launch bounds, at (240, 3), (240, 9) and (18000, 3):
+   ``launch_floor_us``, the device time of an empty kernel with the same
+   grid, block and shared memory by the same profiler reading, with
+   ``floor_share``, and the kernel launches of one call (K5a with the
+   median ranked in its launch: 1); and for
    K6, which the latency of one point's dependent Newton steps bounds,
    ``latency_floor_us`` (the most steps a point ran times a stated
    per-step floor in cycles, plus the templates, at the SM clock
@@ -45,17 +52,28 @@ Phases (any failure is an uncaught exception and a nonzero exit):
       reads per steady-state frame are counted with torch's sync debug
       mode;
    c. offline ``stabilize_clip`` at 1920x1080 over 32 frames, similarity +
-      box (K1, K5b, K3, K6) and homography + box (K2, K5b, K3, K6).
+      box (K1, K5b, K3, K6) and homography + box (K2, K5b, K3, K6);
+   d. the streaming ``Stabilizer`` (smoothing_radius=15) at 1920x1080 over
+      48 frames with each of the gaussian, kalman and butterworth
+      smoothers and with ``drone_high_freq_mode`` (the HF chain and the
+      conditional CLAHE), then ``flush()`` (K1, K3, K6): ms/frame over 16
+      steady-state frames and the host reads of 8 more, which must all be
+      the GFTT NMS's (the new branches add none).
 5. Steady-state ms/frame of the chain, the bare ``Stabilizer`` and the
    homography ``Stabilizer`` at 1080p (CUDA events); offline frames/s of
    both models over 240 frames at 1080p with the analysis, smoothing and
-   warp stages timed apart; where the time goes with LK's Newton ladder
+   warp stages timed apart, with box and with the gaussian, kalman,
+   butterworth and l1 smoothers (similarity; kalman for the homography
+   model too), counters zeroed around each, and the l1 solve alone on a
+   (240, 3) path: its ms and its kernel launches; where the time goes with LK's Newton ladder
    through its plain version and through K6, in turns (plain, kernel,
    kernel, plain) on each streaming path and offline: ms/frame, LK's
    ms/frame, kernel launches per frame and the device's busy share from
    ``torch.profiler``; and the CUDA runs against the CPU (plain) runs on a
-   small input: the chain, the homography ``Stabilizer`` and offline
-   ``stabilize_clip`` of both models, all fed the same RANSAC draws.
+   small input: the chain, the homography ``Stabilizer``, offline
+   ``stabilize_clip`` of both models, and one streaming and one offline
+   run of each new smoother (and the drone mode), all fed the same RANSAC
+   draws.
 
 Then one ``{"kernels": [...]}`` line: per kernel the phase-3 numbers, the
 launches of each phase-4 path and its launches per frame. Its ``ms``,
@@ -89,6 +107,55 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return proc.stdout.strip().splitlines()[0]
+
+
+def start_launch_floor_build():
+    """Start the nvcc of csrc/launch_floor.cu (the empty kernel behind
+    ``launch_floor_us``) into a library of its own -> (process, path)."""
+    from video_stab_tpu_torch.kernels import _lib
+    out_dir = _lib.build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib = out_dir / "liblaunch_floor.so"
+    cmd = [_lib._nvcc(), *_lib.NVCC_FLAGS, "-shared", "-o", str(lib),
+           str(_lib.CSRC / "launch_floor.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), lib
+
+
+def load_launch_floor(build):
+    """Wait for the build; -> launch(blocks, threads, smem_bytes), which
+    launches the empty kernel on PyTorch's current stream."""
+    import ctypes
+
+    import torch
+
+    from video_stab_tpu_torch.kernels import _lib
+    proc, path = build
+    out = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on launch_floor.cu:\n{out}")
+    fn = ctypes.CDLL(str(path)).vs_launch_floor
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch(blocks: int, threads: int, smem_bytes: int) -> None:
+        _lib.check(fn(blocks, threads, smem_bytes,
+                      torch.cuda.current_stream().cuda_stream),
+                   "launch_floor")
+    return launch
+
+
+def launches_of(torch, fn) -> int:
+    """Kernel launches of one fn() call: the host's ``*LaunchKernel*`` calls
+    in a torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return kernel_counts(prof)[0]
 
 
 def make_frames(h: int, w: int, n: int, seed: int = SEED) -> np.ndarray:
@@ -223,7 +290,7 @@ def corner_input(torch, frame):
         align_corners=False)[0, 0].contiguous()
 
 
-def check_kernels(torch, dev) -> dict:
+def check_kernels(torch, dev, launch_floor) -> dict:
     """Phase 3: each kernel against its plain version at the path's shapes,
     then its device time, wrapper time, bound and yardstick."""
     from video_stab_tpu_torch.core.params import EnhancerParams
@@ -339,14 +406,16 @@ def check_kernels(torch, dev) -> dict:
     k4.update(max_abs_err=float(d.max()),
               library="none: the pointwise chain is several calls")
     results["enhance_u8"] = k4
-    results.update(check_new_kernels(torch, dev, frame, cold))
+    results.update(check_new_kernels(torch, dev, frame, cold, launch_floor))
     results.update(check_lk(torch, dev))
     return results
 
 
-def check_new_kernels(torch, dev, frame, cold) -> dict:
+def check_new_kernels(torch, dev, frame, cold, launch_floor) -> dict:
     """Phase 3, K2 / K5a / K5b: bit for bit against the plain versions;
-    K5b also against its one-call yardstick, ``avg_pool1d``."""
+    K5b also against its one-call yardstick, ``avg_pool1d``; K5a and K5b
+    against ``launch_floor_us``, an empty kernel with their launch
+    configuration."""
     import torch.nn.functional as F
 
     from video_stab_tpu_torch.kernels import traj as ktraj
@@ -379,16 +448,19 @@ def check_new_kernels(torch, dev, frame, cold) -> dict:
 
     rng = np.random.default_rng(7)
 
-    def path(c):
-        return torch.from_numpy(np.cumsum(rng.normal(0, 1, (240, c)), axis=0)
+    def path(c, n=240):
+        return torch.from_numpy(np.cumsum(rng.normal(0, 1, (n, c)), axis=0)
                                 .astype(np.float32)).to(dev)
 
-    k5 = [("box_filter_centered", ktraj.box_filter_centered_cuda,
-           ktraj.box_filter_centered_plain, path(3), 15),
-          ("box_filter_centered", ktraj.box_filter_centered_cuda,
-           ktraj.box_filter_centered_plain, path(9), 15),
-          ("box_filter_convolve", ktraj.box_filter_convolve_cuda,
-           ktraj.box_filter_convolve_plain, path(3), 8)]
+    centered = ("box_filter_centered", ktraj.box_filter_centered_cuda,
+                ktraj.box_filter_centered_plain)
+    convolve = ("box_filter_convolve", ktraj.box_filter_convolve_cuda,
+                ktraj.box_filter_convolve_plain)
+    # Each row's headline numbers are its first shape's; (18000, 3) is a
+    # ten-minute clip's path, above K5a's in-kernel median limit.
+    k5 = [(*centered, path(3), 15), (*centered, path(9), 15),
+          (*convolve, path(3), 8), (*convolve, path(9), 8),
+          (*centered, path(3, 18000), 15), (*convolve, path(3, 18000), 8)]
     ktraj.CONVOLVE_LAUNCHES = 0
     for name, cuda_fn, plain_fn, p, r in k5:
         got, want = cuda_fn(p, r), plain_fn(p, r)
@@ -400,9 +472,33 @@ def check_new_kernels(torch, dev, frame, cold) -> dict:
         assert torch.equal(got, want), name
         window = 2 * r + 1 if name == "box_filter_centered" else r
         t = timing(torch, f"{name} {shape}", lambda i: cuda_fn(p, r),
-                   lambda i: plain_fn(p, r), ["box_window_kernel"],
+                   lambda i: plain_fn(p, r),
+                   ["box_window_kernel", "box_median_kernel"],
                    4 * (2 * p.numel() + p.shape[1]), p.numel() * (window + 3))
         t["shape"] = shape
+        # The launch floor: an empty kernel with this launch's grid, block
+        # and shared memory, read by the same device_us.
+        median = name == "box_filter_convolve" and \
+            ktraj.median_in_kernel(p.shape[0])
+        blocks, threads, _, smem = ktraj.launch_config(
+            p.shape[0], p.shape[1], window, median)
+        t["launch_floor_us"] = device_us(
+            torch, lambda i: launch_floor(blocks, threads, smem),
+            ["launch_floor_kernel"])
+        t["floor_share"] = t["launch_floor_us"] / t["device_us"]
+        t["launch"] = {"blocks": blocks, "threads": threads,
+                       "smem_bytes": smem, "median_in_kernel": median}
+        before = ktraj.CONVOLVE_LAUNCHES
+        t["launches_per_call"] = launches_of(torch, lambda: cuda_fn(p, r))
+        if name == "box_filter_convolve":
+            assert ktraj.CONVOLVE_LAUNCHES == before + 2, name
+        print(f"{name} {shape}: launch floor {t['launch_floor_us']:.3f} us "
+              f"({blocks} blocks x {threads} threads, {smem} B shared), "
+              f"floor_share {t['floor_share']:.3f}; kernel launches per "
+              f"call {t['launches_per_call']}"
+              + (" (median ranked in the kernel)" if median else ""))
+        assert t["launches_per_call"] == 1 or not (
+            median or name == "box_filter_centered"), t
         row = results.setdefault(name, dict(t, max_abs_err=err, shapes=[]))
         row["shapes"].append(t)
         row["max_abs_err"] = max(row["max_abs_err"], err)
@@ -736,11 +832,8 @@ def homography_params(**kw):
 def run_homography_stream(torch, dev, pool) -> dict:
     """Phase 4b: the streaming homography Stabilizer at 1080p, counters
     zeroed around it; then the host reads of 8 steady-state frames."""
-    import warnings
-
     from video_stab_tpu_torch.core.params import ModeParams
     from video_stab_tpu_torch.core.stabilizer import Stabilizer
-    from video_stab_tpu_torch.ops import features as tfeat
 
     stab = Stabilizer(homography_params(), mode=ModeParams())
     radius = stab.params.effective_radius
@@ -779,15 +872,34 @@ def run_homography_stream(torch, dev, pool) -> dict:
     stab = Stabilizer(homography_params(), mode=ModeParams())
     for i in range(24):
         stab.stabilize_device(pool[i])
+    by_line, n_syncs, nms = count_syncs(
+        torch, "homography stream", stab.stabilize_device, pool[24:32])
+    # The package's reads: the NMS flag (ops/features.py) and the eigh /
+    # matrix_exp of motion/homography.py, nothing else.
+    n_feat = sum(n for k, n in by_line.items() if k.startswith("ops/features"))
+    n_hom = sum(n for k, n in by_line.items()
+                if k.startswith("motion/homography"))
+    assert n_feat == nms and n_feat + n_hom == n_syncs, by_line
+    return launches
+
+
+def count_syncs(torch, label, step, frames):
+    """The synchronizing calls of step(frame) over ``frames``, by torch's
+    sync debug mode -> (the package's, by file:line; their number; the
+    GFTT NMS reads the library counted itself)."""
+    import warnings
+
+    from video_stab_tpu_torch.ops import features as tfeat
+
     torch.cuda.synchronize()
     nms0 = tfeat.NMS_SYNCS
-    n_win = 8
+    n_win = len(frames)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            for i in range(24, 24 + n_win):
-                stab.stabilize_device(pool[i])
+            for f in frames:
+                step(f)
         finally:
             torch.cuda.set_sync_debug_mode("default")
     # A warning is attributed to the Python line that called the op: the
@@ -799,7 +911,7 @@ def run_homography_stream(torch, dev, pool) -> dict:
     by_line = collections.Counter(
         f"{w.filename.split('video_stab_tpu_torch/')[-1]}:{w.lineno}"
         for w in syncs)
-    print(f"homography stream: {len(syncs)} synchronizing calls over "
+    print(f"{label}: {len(syncs)} synchronizing calls over "
           f"{n_win} steady-state frames ({len(syncs) / n_win:.2f}/frame); "
           f"the GFTT NMS reads counted by the library: {nms}")
     for where, n in sorted(by_line.items()):
@@ -808,13 +920,83 @@ def run_homography_stream(torch, dev, pool) -> dict:
         if "synchroniz" in str(w.message) and \
                 "video_stab_tpu_torch" not in w.filename:
             print(f"  other synchronizing call at {w.filename}:{w.lineno}")
-    # The package's reads: the NMS flag (ops/features.py) and the eigh /
-    # matrix_exp of motion/homography.py, nothing else.
-    n_feat = sum(n for k, n in by_line.items() if k.startswith("ops/features"))
-    n_hom = sum(n for k, n in by_line.items()
-                if k.startswith("motion/homography"))
-    assert n_feat == nms and n_feat + n_hom == len(syncs), by_line
-    return launches
+    return by_line, len(syncs), nms
+
+
+SMOOTHER_FRAMES, SMOOTHER_WARM, SMOOTHER_TIMED = 48, 24, 16
+STREAM_SMOOTHERS = {
+    "gaussian": dict(smoothing_method="gaussian"),
+    "kalman": dict(smoothing_method="kalman"),
+    "butterworth": dict(smoothing_method="butterworth"),
+    "drone": dict(drone_high_freq_mode=True),
+}
+
+
+def run_smoother_streams(torch, dev, pool) -> dict:
+    """Phase 4d: the streaming Stabilizer at 1080p with each of the other
+    smoothers and with the drone high-frequency mode, counters zeroed
+    around each: SMOOTHER_WARM frames, SMOOTHER_TIMED timed by CUDA events,
+    the rest under the sync debug mode, then flush()."""
+    from video_stab_tpu_torch.core.params import ModeParams, StabilizerParams
+    from video_stab_tpu_torch.core.stabilizer import Stabilizer
+
+    by_path = {}
+    for name, kw in STREAM_SMOOTHERS.items():
+        label = f"stream {name}"
+        stab = Stabilizer(StabilizerParams(smoothing_radius=15, **kw),
+                          mode=ModeParams())
+        radius = stab.params.effective_radius
+        zero_counts()
+        outs = [stab.stabilize_device(pool[i]) for i in range(SMOOTHER_WARM)]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        timed_to = SMOOTHER_WARM + SMOOTHER_TIMED
+        outs += [stab.stabilize_device(pool[i])
+                 for i in range(SMOOTHER_WARM, timed_to)]
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / SMOOTHER_TIMED
+        window = pool[timed_to:SMOOTHER_FRAMES]
+        by_line, n_syncs, nms = count_syncs(
+            torch, label, lambda f: outs.append(stab.stabilize_device(f)),
+            window)
+        flushed = []
+        while (f := stab.flush()) is not None:
+            flushed.append(f)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        print(f"{label} 1080p: {ms:.3f} ms/frame over {SMOOTHER_TIMED} "
+              f"steady-state frames (CUDA events); launches {launches}")
+        assert launches["warp_affine_u8"] > 0 and \
+            launches["corner_response"] > 0 and launches["lk_track"] > 0, \
+            launches
+        # The new branches read nothing back: every synchronizing call of
+        # the package is the GFTT NMS's.
+        n_feat = sum(n for k, n in by_line.items()
+                     if k.startswith("ops/features"))
+        assert n_feat == nms == n_syncs, (label, by_line)
+        outs = [o for o in outs if o is not None]
+        assert len(outs) == SMOOTHER_FRAMES - radius + 1, len(outs)
+        assert len(flushed) == radius - 1, len(flushed)
+        for out in outs:
+            assert out.shape == pool.shape[1:] and out.dtype == torch.uint8
+        st = stab.state_dict()
+        for key in ("kalman_x", "kalman_p", "butter_state", "path_ring"):
+            assert np.isfinite(st[key]).all(), (label, key)
+        assert all(np.isfinite(np.asarray(v, np.float64)).all()
+                   for v in st["hf"]), label
+        std = float(outs[-1].float().std())
+        print(f"{label}: {len(outs)} frames emitted in stream, "
+              f"{len(flushed)} by flush(); last frame std {std:.3f}; hf "
+              f"pushes {int(st['hf'].n_history)}, starvation counter "
+              f"{int(st['starvation_counter'])}, envelope_exceeded "
+              f"{int(st['envelope_exceeded'])}")
+        assert std > 5.0
+        assert int(st["hf"].n_history) == \
+            (SMOOTHER_FRAMES - 1 if name == "drone" else 0)
+        by_path[label] = launches
+    return by_path
 
 
 def run_offline(torch, dev, pool) -> dict:
@@ -883,34 +1065,85 @@ def steady_state(torch, dev, pool) -> None:
           "homography Stabilizer(smoothing_radius=15)")
 
 
-def offline_throughput(torch, dev) -> None:
-    """Phase 5b: offline frames/s over 240 frames at 1080p, both models,
-    the clip already on the card; stage times from CUDA events."""
+def offline_throughput(torch, dev) -> dict:
+    """Phase 5b: offline frames/s over 240 frames at 1080p, the clip
+    already on the card; stage times from CUDA events; both models with
+    box, the similarity model with each other smoother and the homography
+    model with kalman (the 9-channel case), counters zeroed around each
+    run. Returns the launches of the new smoothers' runs by label."""
     from video_stab_tpu_torch.core.params import StabilizerParams
     from video_stab_tpu_torch.offline import stabilize_clip_device
 
     clip = torch.from_numpy(make_frames(1080, 1920, OFFLINE_TIMED_FRAMES,
                                         seed=4)).to(dev)
-    for label, params in (("similarity+box",
-                           StabilizerParams(smoothing_radius=15)),
-                          ("homography+box", homography_params())):
+
+    def similarity(method):
+        return StabilizerParams(smoothing_radius=15, smoothing_method=method)
+
+    by_path = {}
+    for label, params in (
+            ("similarity+box", similarity("box")),
+            ("homography+box", homography_params()),
+            ("similarity+gaussian", similarity("gaussian")),
+            ("similarity+kalman", similarity("kalman")),
+            ("similarity+butterworth", similarity("butterworth")),
+            ("similarity+l1", similarity("l1")),
+            ("homography+kalman",
+             homography_params(smoothing_method="kalman"))):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        zero_counts()
         stages = {}
         t0 = time.perf_counter()
         out = stabilize_clip_device(clip, params, device=dev,
                                     stage_ms=stages)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        assert out.shape == clip.shape
+        launches = read_counts()
+        assert out.shape == clip.shape and out.dtype == torch.uint8
+        std = float(out[-1].float().std())
         ms = sum(stages.values())
         print(f"offline {label} 1080p x {OFFLINE_TIMED_FRAMES}: "
               f"{OFFLINE_TIMED_FRAMES * 1000.0 / ms:.2f} frames/s "
               f"(CUDA events {ms:.1f} ms: analyze {stages['analyze']:.1f}, "
               f"smooth {stages['smooth']:.3f}, warp {stages['warp']:.1f}); "
               f"host clock {wall * 1000.0:.1f} ms; peak device memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; last "
+              f"frame std {std:.3f}")
+        assert std > 5.0, label
+        if not label.endswith("+box"):
+            warp = "warp_homography_u8" if label.startswith("homography") \
+                else "warp_affine_u8"
+            assert launches[warp] > 0 and launches["corner_response"] > 0 \
+                and launches["lk_track"] > 0, (label, launches)
+            assert launches["box_filter_centered"] == 0, (label, launches)
+            print(f"offline {label}: launches {launches}")
+            by_path[f"offline {label} x {OFFLINE_TIMED_FRAMES}"] = launches
         del out
+    del clip
+    l1_solve(torch, dev)
+    return by_path
+
+
+def l1_solve(torch, dev) -> None:
+    """The l1 solve alone on a (240, 3) random-walk path of a clip's size
+    (pixels, pixels, radians): its time between CUDA events and its kernel
+    launches from the profiler."""
+    from video_stab_tpu_torch.motion.l1path import l1_smooth_path
+
+    rng = np.random.default_rng(9)
+    steps = rng.normal(0, 1, (OFFLINE_TIMED_FRAMES, 3)) * [3.0, 3.0, 0.003]
+    path = torch.from_numpy(np.cumsum(steps, axis=0).astype(np.float32)) \
+        .to(dev)
+    bound = torch.tensor([20.0, 20.0, 0.05]).to(dev)
+    ms = call_ms(torch, lambda i: l1_smooth_path(path, bound), n=2)
+    launches = launches_of(torch, lambda: l1_smooth_path(path, bound))
+    out = l1_smooth_path(path, bound)
+    moved = float((out - path).abs().max())
+    assert bool(torch.isfinite(out).all()) and 0.0 < moved <= 20.0 + 1e-3
+    print(f"l1 solve ({path.shape[0]}, 3), 60 x 25 iterations: {ms:.1f} ms "
+          f"a solve (CUDA events over 2 after 3 of warm-up), {launches} "
+          f"kernel launches; the path moved by at most {moved:.3f}")
 
 
 LK_ROUTES = ("plain", "kernel", "kernel", "plain")
@@ -1112,6 +1345,7 @@ def small_reference(torch, dev) -> None:
     assert same >= 0.995 and abs(angles[True] - angles[False]) < 1e-3
     small_reference_homography(torch, frames, sp)
     small_reference_offline(torch, frames, sp)
+    small_reference_smoothers(torch, frames, sp)
 
 
 def injected_draws(torch, n_steps: int, k: int, width: int, seed: int):
@@ -1178,6 +1412,54 @@ def small_reference_offline(torch, frames, sp) -> None:
                       outs["cpu"])
 
 
+def small_reference_smoothers(torch, frames, sp) -> None:
+    """One streaming and one offline run of each new smoother (and of the
+    drone mode, streaming) on the card against the CPU, fed the same
+    draws."""
+    import dataclasses
+
+    from video_stab_tpu_torch.core.params import ModeParams
+    from video_stab_tpu_torch.core.stabilizer import Stabilizer
+    from video_stab_tpu_torch.offline import stabilize_clip
+
+    size = f"small input {frames.shape[1]}x{frames.shape[2]}"
+    for name, kw in STREAM_SMOOTHERS.items():
+        p = dataclasses.replace(sp, **kw)
+        if name == "drone":
+            # Enough corners that the stream is never starved (>= 40
+            # tracked): the frame on which the conditional CLAHE switches
+            # on tracks an equalized frame against a plain one, and its
+            # few, poor matches leave RANSAC to float32 rounding.
+            p = dataclasses.replace(p, analysis_width=256,
+                                    analysis_height=144, max_corners=128,
+                                    min_distance=8.0)
+        outs = {}
+        starved = {}
+        for use_cuda in (False, True):
+            stab = Stabilizer(p, mode=ModeParams(use_cuda=use_cuda),
+                              ransac_draws=injected_draws(
+                                  torch, len(frames), p.ransac_hypotheses,
+                                  2, 7))
+            got = [o for o in (stab.stabilize(f) for f in frames)
+                   if o is not None]
+            while (f := stab.flush()) is not None:
+                got.append(f)
+            outs[use_cuda] = np.stack(got)
+            starved[use_cuda] = int(stab.state_dict()["starvation_counter"])
+        compare_small(f"{size}: CUDA vs CPU Stabilizer, {name} (starvation "
+                      f"counter {starved[True]} / {starved[False]})",
+                      outs[True], outs[False])
+    for method in ("gaussian", "kalman", "butterworth", "l1"):
+        p = dataclasses.replace(sp, smoothing_method=method)
+        outs = {dev: stabilize_clip(frames, p, device=dev,
+                                    ransac_draws=injected_draws(
+                                        torch, len(frames),
+                                        p.ransac_hypotheses, 2, 8))
+                for dev in ("cpu", "cuda")}
+        compare_small(f"{size}: CUDA vs CPU offline similarity+{method}",
+                      outs["cuda"], outs["cpu"])
+
+
 def main() -> int:
     import torch
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -1192,26 +1474,33 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
+    floor_build = start_launch_floor_build()
     lib_path = _lib.build()
     _lib.library()
+    launch_floor = load_launch_floor(floor_build)
     print(f"build: {lib_path.name} in {time.perf_counter() - t0:.1f} s")
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line.lower():
             print(f"  ptxas: {line.strip()}")
 
-    kernels = check_kernels(torch, dev)
+    kernels = check_kernels(torch, dev, launch_floor)
 
     pool = torch.from_numpy(make_frames(1080, 1920, N_FRAMES)).to(dev)
     by_path = {"chain": run_slice(torch, dev, pool),
                "homography stream": run_homography_stream(torch, dev, pool),
-               **run_offline(torch, dev, pool)}
+               **run_offline(torch, dev, pool),
+               **run_smoother_streams(torch, dev, pool)}
     frames = {"chain": N_FRAMES, "homography stream": N_FRAMES,
               "offline similarity+box": OFFLINE_SLICE_FRAMES,
-              "offline homography+box": OFFLINE_SLICE_FRAMES}
+              "offline homography+box": OFFLINE_SLICE_FRAMES,
+              **{f"stream {name}": SMOOTHER_FRAMES
+                 for name in STREAM_SMOOTHERS}}
     steady_state(torch, dev, pool)
     routes = lk_routes(torch, dev, pool)
     del pool
-    offline_throughput(torch, dev)
+    offline = offline_throughput(torch, dev)
+    by_path.update(offline)
+    frames.update({label: OFFLINE_TIMED_FRAMES for label in offline})
     small_reference(torch, dev)
 
     meta = {
@@ -1258,7 +1547,8 @@ def main() -> int:
                       "err_max_abs_diff", "eps_1e_6", "lk_track_launches",
                       "steps", "steps_eps_1e_6", "latency_floor_us",
                       "floor_share", "sm_clock_mhz", "step_floor_cycles",
-                      "template_floor_cycles"):
+                      "template_floor_cycles", "launch_floor_us", "launch",
+                      "launches_per_call"):
             if extra in k:
                 row[extra] = k[extra]
         if name == "lk_track":

@@ -7,8 +7,13 @@ Hough vote threshold scaled to the quarter-size roll image.
 Held: identical ``ready`` sequences, the smoothed roll angle within 1e-3
 deg after every frame, emitted frames within 1 on >= 99.5 % of pixels, the
 same number of frames drained by ``flush()``; and from a mid-stream JAX
-ChainState carried into the port, the same for the next 5 steps.
+ChainState carried into the port, the same for the next 5 steps. The chain
+with the kalman smoother and with the drone high-frequency mode is held to
+the JAX chain the same way, and a chain resumed from its own saved state
+to the uninterrupted one, bit for bit.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -23,6 +28,7 @@ from video_stab_tpu.core import chain as jchain  # noqa: E402
 from video_stab_tpu.core import params as jparams  # noqa: E402
 from video_stab_tpu_torch.core import chain as tchain  # noqa: E402
 from video_stab_tpu_torch.core import params as tparams  # noqa: E402
+from video_stab_tpu_torch.core import state as tstate  # noqa: E402
 
 H, W = 192, 256
 N = 20
@@ -149,3 +155,62 @@ def test_chain_state_round_trip_continues_like_jax(jax_run):
         assert abs(float(ch.state.roll.smoothed_angle) - j_angles[i]) <= 1e-3
         if o is not None:
             assert _close(o, j_outs[i]) >= 0.995
+
+
+def _smoother_chain(kw, key=None):
+    p = _params(tparams)
+    p["mode"] = tparams.ModeParams(use_cuda=False, enhancer_enabled=True,
+                                   roll_correction_enabled=True,
+                                   stabilizer_enabled=True)
+    p["stabilizer"] = dataclasses.replace(p["stabilizer"], **kw)
+    draws = None if key is None else \
+        JaxDraws(key, p["stabilizer"].ransac_hypotheses)
+    return tchain.ProcessingChain(**p, ransac_draws=draws)
+
+
+@pytest.mark.parametrize("case", ["kalman", "drone"])
+def test_chain_accepts_the_smoothers_like_jax(case):
+    """The fused chain with the kalman smoother and with the drone chain,
+    against the JAX chain on the same frames."""
+    kw = {"kalman": {"smoothing_method": "kalman"},
+          "drone": {"drone_high_freq_mode": True}}[case]
+    frames = _frames()[:14]
+    jp = _params(jparams)
+    jp["stabilizer"] = dataclasses.replace(jp["stabilizer"], **kw)
+    jc = jchain.ProcessingChain(**jp)
+    ch = _smoother_chain(kw, jax.random.PRNGKey(0))
+    emitted = 0
+    for f in frames:
+        want, got = jc.process(f), ch.process(f)
+        assert (got is None) == (want is None)
+        if got is not None:
+            assert _close(got, np.asarray(want)) >= 0.995
+            emitted += 1
+    assert emitted > 0
+    while (want := jc.flush()) is not None:
+        assert _close(ch.flush(), np.asarray(want)) >= 0.995
+    assert ch.flush() is None
+
+
+def test_chain_resumes_from_a_saved_state():
+    """``chain_state_from_numpy`` over the port's own ``state_to_numpy``
+    tree carries the generator's position: the resumed chain equals the
+    uninterrupted one."""
+    frames = _frames()[:14]
+    kw = {"smoothing_method": "kalman"}
+    whole = _smoother_chain(kw)
+    want = [whole.process(f) for f in frames]
+    first = _smoother_chain(kw)
+    for f in frames[:8]:
+        first.process(f)
+    st = first.state
+    second = _smoother_chain(kw)
+    second.load_state(
+        tchain.chain_state_from_numpy(st.roll.smoothed_angle.numpy(),
+                                      tstate.state_to_numpy(st.stab), "cpu"),
+        first._frames_in, first._emitted)
+    for f, w in zip(frames[8:], want[8:]):
+        got = second.process(f)
+        assert (got is None) == (w is None)
+        if got is not None:
+            np.testing.assert_array_equal(got, w)

@@ -129,6 +129,97 @@ def test_box_filter_kernels_match_plain(dev, n, r, c):
     assert got_c.shape == got_v.shape == path.shape
 
 
+@pytest.mark.parametrize("c", [None, 1, 3, 9])
+@pytest.mark.parametrize("n,r", [(1, 2), (1, 1), (5, 8), (8, 8), (9, 8),
+                                 (16, 15), (33, 3), (86, 3), (255, 7),
+                                 (2048, 50), (2049, 50), (18000, 15)])
+def test_box_filter_kernels_odd_shapes(dev, n, r, c):
+    """K5a / K5b bit for bit at N = 1, N <= r, N = r + 1, a tile's edge
+    (32 rows of 3 channels a block), C = 1, 3, 9, and on both sides of the
+    longest path whose median K5a ranks in its launch (2048 rows)."""
+    from video_stab_tpu_torch.kernels import traj as ktraj
+    rng = np.random.default_rng(1000 * n + r)
+    shape = (n,) if c is None else (n, c)
+    path = torch.from_numpy(np.cumsum(rng.normal(0, 1, shape), axis=0)
+                            .astype(np.float32)).to(dev)
+    got_c = ktraj.box_filter_centered(path, r)
+    got_v = ktraj.box_filter_convolve(path, r)
+    torch.cuda.synchronize()
+    assert torch.equal(got_c, ktraj.box_filter_centered_plain(path, r))
+    assert torch.equal(got_v, ktraj.box_filter_convolve_plain(path, r))
+    assert ktraj.median_in_kernel(n) == (n <= 2048)
+
+
+@pytest.mark.parametrize("case", ["rows view", "offset view", "column view",
+                                  "ties", "nan", "signed zeros"])
+def test_box_filter_kernels_views_and_ties(dev, case):
+    """A non-contiguous view, a view that starts 4 and 12 bytes into its
+    storage (no 16-byte alignment), a path of few distinct values (ties in
+    the median's ranking), NaNs (sorted last, as torch.sort has a NaN
+    with a clear sign bit) and zeros of both signs."""
+    from video_stab_tpu_torch.kernels import traj as ktraj
+    rng = np.random.default_rng(11)
+    base = torch.from_numpy(np.cumsum(rng.normal(0, 1, (301, 6)), axis=0)
+                            .astype(np.float32)).to(dev)
+    if case == "rows view":
+        paths = [base[::2, :3]]
+    elif case == "offset view":
+        flat = base.reshape(-1)
+        paths = [flat[k:k + 900].reshape(300, 3) for k in (1, 2, 3)]
+    elif case == "column view":
+        paths = [base[:, 4], base.t()[:5].t()]
+    elif case == "ties":
+        paths = [torch.round(base[:, :3] / 8.0), torch.zeros_like(base),
+                 torch.ones((7, 3), device=dev)]
+    elif case == "nan":
+        p = base[:, :3].clone()
+        p[5, 0] = float("nan")
+        p[7:200, 1] = float("nan")
+        p[:, 2] = -p[:, 2].abs()
+        paths = [p]
+    else:
+        p = torch.zeros((64, 3), device=dev)
+        p[::2] = -0.0
+        p[:5, 1] = torch.tensor([1.0, -1.0, 2.0, -2.0, 0.0], device=dev)
+        paths = [p]
+    for path in paths:
+        for r in (4, 15):
+            for cuda_fn, plain_fn in (
+                    (ktraj.box_filter_centered, ktraj.box_filter_centered_plain),
+                    (ktraj.box_filter_convolve, ktraj.box_filter_convolve_plain)):
+                got, want = cuda_fn(path, r), plain_fn(path, r)
+                torch.cuda.synchronize()
+                assert got.shape == path.shape
+                assert torch.equal(torch.nan_to_num(got, nan=1e30),
+                                   torch.nan_to_num(want, nan=1e30)), \
+                    (case, tuple(path.shape), r, cuda_fn.__name__)
+
+
+@pytest.mark.parametrize("n,launches", [(240, 1), (2048, 1), (5000, None)])
+def test_box_filter_convolve_is_one_launch(dev, n, launches):
+    """K5a with the median ranked in the kernel is one kernel launch a call
+    (the profiler's count of the host's launch calls agrees with the
+    wrapper's counter); above the limit the wrapper's sort adds its own."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from video_stab_tpu_torch.kernels import traj as ktraj
+    path = torch.randn((n, 3), device=dev).cumsum(0)
+    ktraj.box_filter_convolve(path, 8)
+    torch.cuda.synchronize()
+    before = ktraj.CONVOLVE_LAUNCHES
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ktraj.box_filter_convolve(path, 8)
+        torch.cuda.synchronize()
+    assert ktraj.CONVOLVE_LAUNCHES == before + 1
+    seen = sum(ev.count for ev in prof.key_averages()
+               if "LaunchKernel" in ev.key)
+    if launches is None:
+        assert seen > 1, seen
+    else:
+        assert seen == launches, seen
+
+
 def test_corner_kernel_matches_plain(dev):
     from video_stab_tpu_torch.kernels import features as kfeat
     gray = torch.from_numpy(_textured(75, 133, 1)).to(dev)
@@ -394,3 +485,160 @@ def test_lk_steps_argument_is_checked(dev):
                            steps=torch.zeros(7, dtype=torch.int32,
                                              device=dev))
     assert klk.LAUNCHES == before
+
+
+# --- the smoothers and the resumed stream on the card ------------------------
+
+SMALL_STREAM = dict(smoothing_radius=5, analysis_width=128, analysis_height=72,
+                    max_corners=64, ransac_hypotheses=64)
+CARD_SMOOTHERS = {
+    "gaussian": {"smoothing_method": "gaussian"},
+    "kalman": {"smoothing_method": "kalman"},
+    "butterworth": {"smoothing_method": "butterworth"},
+    # Enough corners that the stream is never starved (>= 40 tracked): the
+    # frame on which the conditional CLAHE switches on tracks an equalized
+    # frame against a plain one, and its few, poor matches leave RANSAC to
+    # float32 rounding. CLAHE itself is held to the CPU below.
+    "drone": {"drone_high_freq_mode": True, "analysis_width": 256,
+              "analysis_height": 144, "max_corners": 128,
+              "min_distance": 8.0},
+    "homography kalman": {"motion_model": "homography",
+                          "smoothing_method": "kalman"},
+}
+
+
+def _jittered(n, h=144, w=256, seed=3):
+    """n frames: a textured world seen through a jittering window."""
+    rng = np.random.default_rng(seed)
+    world = _textured(h + 32, w + 32, seed)
+    frames = []
+    for _ in range(n):
+        dx, dy = rng.integers(-5, 6, 2)
+        f = world[16 + dy:16 + dy + h, 16 + dx:16 + dx + w]
+        frames.append(np.stack([f, np.roll(f, 1, 0), 255 - f], axis=-1)
+                      .astype(np.uint8))
+    return np.stack(frames)
+
+
+def _draws(n_steps, k, width, seed):
+    u = np.random.default_rng(seed).random((n_steps, k, width))
+    steps = iter(range(n_steps))
+
+    def inject(n_valid):
+        hi = max(int(n_valid), 1)
+        return torch.from_numpy(np.minimum(np.floor(u[next(steps)] * hi),
+                                           hi - 1).astype(np.int64))
+    return inject
+
+
+def _stream(stab, frames):
+    outs = [o for o in (stab.stabilize(f) for f in frames) if o is not None]
+    while (f := stab.flush()) is not None:
+        outs.append(f)
+    return np.stack(outs)
+
+
+def _within_one(a, b):
+    assert a.shape == b.shape
+    return float((np.abs(a.astype(int) - b.astype(int)) <= 1).mean())
+
+
+@pytest.mark.parametrize("case", list(CARD_SMOOTHERS))
+def test_stabilizer_smoothers_match_cpu(dev, case):
+    """The streaming Stabilizer with each new smoother and the drone mode:
+    the card (kernels) against the CPU (plain versions) on the same frames
+    and RANSAC draws: u8 frames within 1 on >= 99.5 % of pixels."""
+    from video_stab_tpu_torch.core.params import ModeParams, StabilizerParams
+    from video_stab_tpu_torch.core.stabilizer import Stabilizer
+    p = StabilizerParams(**{**SMALL_STREAM, **CARD_SMOOTHERS[case]})
+    width = 4 if p.motion_model == "homography" else 2
+    frames = _jittered(20)
+    outs = [_stream(Stabilizer(p, mode=ModeParams(use_cuda=use_cuda),
+                               ransac_draws=_draws(len(frames),
+                                                   p.ransac_hypotheses,
+                                                   width, 5)), frames)
+            for use_cuda in (False, True)]
+    assert len(outs[0]) == len(frames)
+    assert _within_one(outs[1], outs[0]) >= 0.995
+
+
+@pytest.mark.parametrize("model,method", [
+    ("similarity", "gaussian"), ("similarity", "kalman"),
+    ("similarity", "butterworth"), ("similarity", "l1"),
+    ("homography", "kalman"), ("homography", "butterworth")])
+def test_offline_smoothers_match_cpu(dev, model, method):
+    """Offline stabilize_clip with each new smoother, the card against the
+    CPU; the homography model with the 9-channel kalman and butterworth
+    runs."""
+    from video_stab_tpu_torch.core.params import StabilizerParams
+    from video_stab_tpu_torch.offline import stabilize_clip
+    p = StabilizerParams(**SMALL_STREAM, motion_model=model,
+                         smoothing_method=method)
+    frames = _jittered(16, seed=4)
+    width = 4 if model == "homography" else 2
+    outs = [stabilize_clip(frames, p, device=d,
+                           ransac_draws=_draws(len(frames),
+                                               p.ransac_hypotheses, width, 6))
+            for d in ("cpu", "cuda")]
+    assert outs[0].shape == frames.shape
+    assert _within_one(outs[1], outs[0]) >= 0.995
+
+
+@pytest.mark.parametrize("kw", [{}, {"smoothing_method": "kalman"},
+                                {"drone_high_freq_mode": True},
+                                {"motion_model": "homography"}])
+def test_resumed_stream_continues_on_the_card(dev, kw):
+    """Save after 10 frames, load into a new Stabilizer, continue: equal to
+    the uninterrupted stream bit for bit, the draws coming from the card's
+    generator, whose position the saved state carries."""
+    from video_stab_tpu_torch.core.params import ModeParams, StabilizerParams
+    from video_stab_tpu_torch.core.stabilizer import Stabilizer
+    p = StabilizerParams(**SMALL_STREAM, seed=2, **kw)
+    frames = _jittered(18)
+    whole = Stabilizer(p, mode=ModeParams())
+    want = [whole.stabilize(f) for f in frames]
+    want_tr = whole.last_metrics["transform"].cpu()
+    first = Stabilizer(p, mode=ModeParams())
+    for f in frames[:10]:
+        first.stabilize(f)
+    saved = first.state_dict()
+    assert saved["key_device"] == "cuda"
+    second = Stabilizer(p, mode=ModeParams())
+    second.load_state_dict(saved, *frames.shape[1:3])
+    for f, w in zip(frames[10:], want[10:]):
+        got = second.stabilize(f)
+        assert (got is None) == (w is None)
+        if got is not None:
+            np.testing.assert_array_equal(got, w)
+    assert torch.equal(second.last_metrics["transform"].cpu(), want_tr)
+    while (w := whole.flush()) is not None:
+        np.testing.assert_array_equal(second.flush(), w)
+
+
+def test_smoother_functions_match_cpu(dev):
+    """``clahe``, ``hf_apply`` and ``l1_smooth_path`` on the card against
+    the CPU: CLAHE's integer histogram and LUTs are exact, so within 1e-3;
+    the HF chain's flags and counters equal; the l1 path within 1e-3."""
+    from video_stab_tpu_torch.motion import hf as thf
+    from video_stab_tpu_torch.motion.l1path import l1_smooth_path
+    from video_stab_tpu_torch.ops.filters import clahe
+    img = torch.from_numpy(_textured(135, 240, 8))
+    assert float((clahe(img.to(dev)).cpu() - clahe(img)).abs().max()) <= 1e-3
+    rng = np.random.default_rng(1)
+    raws = rng.normal(0, 2.0, (60, 3)).astype(np.float32)
+    raws[:, 2] *= 0.02
+    raws[15:30] *= 0.1
+    kw = dict(dead_zone_threshold=2.0, freeze_duration=10,
+              accumulator_decay=0.9, shake_px=1.5, rot_lp_alpha=0.2,
+              horizon_lock=True)
+    a, b = thf.hf_init(dev), thf.hf_init("cpu")
+    for raw in torch.from_numpy(raws):
+        a, ta = thf.hf_apply(a, raw.to(dev), **kw)
+        b, tb = thf.hf_apply(b, raw, **kw)
+        assert float((ta.cpu() - tb).abs().max()) <= 1e-6
+        assert int(a.freeze_counter) == int(b.freeze_counter)
+        assert bool(a.in_dead_zone) == bool(b.in_dead_zone)
+    path = torch.from_numpy(np.cumsum(rng.normal(0, 2, (120, 3)), axis=0)
+                            .astype(np.float32))
+    got = l1_smooth_path(path.to(dev), 20.0).cpu()
+    assert float((got - l1_smooth_path(path, 20.0)).abs().max()) <= 1e-3

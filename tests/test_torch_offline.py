@@ -8,9 +8,18 @@ Same numpy inputs through both. Tolerances, each with its reason:
   order); the JAX XLA fallback of the box smoother (``use_pallas=False``)
   against the port's one path, K5b: 1e-5 (XLA sums the window in another
   order).
+- ``_smooth_path`` with the gaussian, kalman and butterworth smoothers:
+  1e-5 of the path's largest entry (the same float32 expressions, summed
+  in another order); with l1: 1e-3 px and 1e-5 rad (60 x 25 iterations,
+  see test_torch_smoothers.py).
 - ``stabilize_clip`` with the JAX package's draws injected: emitted u8
   frames within 1 on >= 99.5 % of pixels (the warps are exact; the
   corrections agree to float32 rounding, which moves a .5 tie).
+
+The JAX package's offline kalman and butterworth smoothers hard-code 3
+channels, so they cannot run the 9-channel log-homography path: those
+comparisons are skipped with that reason, and the port's own 9-channel
+runs are held to the streaming filters instead.
 """
 
 import cv2
@@ -183,13 +192,119 @@ def test_stabilize_clip_own_generator_reduces_jitter():
     assert jitter(out) < jitter(clip) * 0.5
 
 
+REFERENCE_3_CHANNELS = ("the JAX package's offline kalman and butterworth "
+                        "smoothers hard-code 3 channels "
+                        "(video_stab_tpu/offline.py:134, 143-144), so its "
+                        "9-channel log-homography path fails there")
+
+
 @pytest.mark.parametrize("method", ["gaussian", "l1", "kalman",
                                     "butterworth"])
 def test_unported_offline_smoothers_raise(method):
-    with pytest.raises(NotImplementedError, match="queue 1 items 6 and 10"):
-        toffline.stabilize_clip(_clip(n=4),
-                                StabilizerParams(smoothing_method=method,
-                                                 **SMALL), mode=CPU)
+    """The offline smoothers that once raised (hence the name) now run:
+    ``stabilize_clip`` of both packages on the same clip."""
+    clip = _clip()
+    kw = dict(SMALL, smoothing_method=method, jitter_frequency="low")
+    jp = JParams(**kw)
+    want = joffline.stabilize_clip(clip, jp)
+    got = toffline.stabilize_clip(
+        clip, StabilizerParams(**kw), mode=CPU,
+        ransac_draws=JaxDraws(jax.random.PRNGKey(jp.seed),
+                              jp.ransac_hypotheses))
+    _check_clip(got, want)
+    assert np.abs(got.astype(int) - clip.astype(int)).max() > 0
+
+
+@pytest.mark.parametrize("c", [3, 9])
+@pytest.mark.parametrize("method", ["gaussian", "l1", "kalman",
+                                    "butterworth"])
+def test_smooth_path_smoothers_match_jax(method, c):
+    p = _path(60, c, seed=c)
+    if c == 3:
+        p[:, 2] *= 0.01
+    kw = dict(smoothing_method=method, gaussian_sigma=2.5, border_size=12)
+    if c == 9 and method == "l1":
+        # The (px, px, rad) crop bound is 3 wide: neither package defines
+        # the l1 smoother for the 9-channel path.
+        with pytest.raises((TypeError, ValueError)):
+            joffline._smooth_path(JParams(**kw), jnp.asarray(p))
+        with pytest.raises(ValueError, match="3-channel"):
+            toffline._smooth_path(StabilizerParams(**kw), torch.from_numpy(p))
+        return
+    got = toffline._smooth_path(StabilizerParams(**kw),
+                                torch.from_numpy(p)).numpy()
+    assert got.shape == p.shape and np.isfinite(got).all()
+    if c == 9 and method in ("kalman", "butterworth"):
+        with pytest.raises((TypeError, ValueError)):
+            joffline._smooth_path(JParams(**kw), jnp.asarray(p))
+        pytest.skip(REFERENCE_3_CHANNELS)
+    want = np.asarray(joffline._smooth_path(JParams(**kw), jnp.asarray(p)))
+    if method == "l1":
+        assert (np.abs(got - want) <= [1e-3, 1e-3, 1e-5]).all()
+    else:
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("method", ["kalman", "butterworth"])
+def test_smooth_path_nine_channels_is_the_streaming_filter(method):
+    """The case the reference cannot run: the 9-channel path through the
+    channel-generic start states equals the streaming filter of
+    ``motion/filters.py`` stepped over the same path, and its first three
+    channels equal the 3-channel run."""
+    from video_stab_tpu_torch.motion import filters as tfilters
+    p = torch.from_numpy(_path(40, 9, seed=4))
+    params = StabilizerParams(smoothing_method=method)
+    got = toffline._smooth_path(params, p)
+    assert got.shape == (40, 9)
+    if method == "kalman":
+        st = tfilters.kalman_init(p[0])
+        assert st["x"].shape == (2, 9) and st["p"].shape == (2, 2, 9)
+        want = [p[0]]
+        for z in p[1:]:
+            st, out = tfilters.kalman_step(st, z)
+            want.append(out)
+    else:
+        st = p[0].expand(4, -1)
+        cutoff = tfilters.jitter_frequency_cutoff(params.jitter_frequency)
+        want = [p[0]]
+        for z in p[1:]:
+            st, out = tfilters.butterworth_cascade(st, z, cutoff, 4)
+            want.append(out)
+    assert torch.equal(got, torch.stack(want))
+    assert torch.equal(got[:, :3],
+                       toffline._smooth_path(params, p[:, :3].contiguous()))
+
+
+@pytest.mark.parametrize("method", ["gaussian", "kalman", "butterworth"])
+def test_stabilize_clip_homography_smoothers(method):
+    """The homography clip reaches every smoother through
+    ``smooth_homography_path``; the gaussian one is held to the JAX
+    package, the other two (which the reference cannot run) to running and
+    changing the clip."""
+    clip = np.stack(perspective_clip(n=10))
+    kw = dict(SMALL, motion_model="homography", smoothing_method=method)
+    jp = JParams(**kw)
+    got = toffline.stabilize_clip(
+        clip, StabilizerParams(**kw), mode=CPU,
+        ransac_draws=JaxDraws(jax.random.PRNGKey(jp.seed),
+                              jp.ransac_hypotheses, width=4))
+    assert got.shape == clip.shape and got.dtype == np.uint8
+    assert np.abs(got.astype(int) - clip.astype(int)).max() > 0
+    if method != "gaussian":
+        with pytest.raises((TypeError, ValueError)):
+            joffline.stabilize_clip(clip, jp)
+        pytest.skip(REFERENCE_3_CHANNELS)
+    _check_clip(got, joffline.stabilize_clip(clip, jp))
+
+
+def test_offline_refuses_only_unknown_methods_and_models():
+    with pytest.raises(NotImplementedError, match="smoothing_method"):
+        toffline.stabilize_clip(_clip(n=2), StabilizerParams(
+            smoothing_method="median", **SMALL), mode=CPU)
+    with pytest.raises(NotImplementedError, match="motion_model"):
+        toffline.stabilize_clip(_clip(n=2), StabilizerParams(
+            motion_model="affine", **SMALL), mode=CPU)
 
 
 @pytest.mark.parametrize("model", ["similarity", "homography"])

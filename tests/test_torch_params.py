@@ -87,6 +87,10 @@ def test_port_never_imports_jax():
         "import video_stab_tpu_torch.kernels.enhance\n"
         "import video_stab_tpu_torch.kernels.traj\n"
         "import video_stab_tpu_torch.motion.homography\n"
+        "import video_stab_tpu_torch.motion.hf\n"
+        "import video_stab_tpu_torch.motion.l1path\n"
+        "import video_stab_tpu_torch.motion.filters\n"
+        "import video_stab_tpu_torch.ops.filters\n"
         "import video_stab_tpu_torch.offline\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'jaxlib',\n"
@@ -128,10 +132,28 @@ def test_use_cuda_without_a_device_raises(monkeypatch):
     {"motion_model": "homography", "border_size": 10},
     {"motion_model": "homography", "drone_high_freq_mode": True}])
 def test_unported_stabilizer_branches_raise(kw):
-    """The homography model runs with box smoothing and no borders; with
-    another smoother, borders or the drone chain it still raises."""
+    """Both motion models run with every streaming smoother and with the
+    drone high-frequency mode (those cases construct); with borders, the
+    virtual canvas, another detector or deep stabilization the Stabilizer
+    still raises, naming the ROADMAP item."""
     from video_stab_tpu_torch.core.stabilizer import Stabilizer
+    params = tparams.StabilizerParams(**kw)
+    mode = tparams.ModeParams(use_cuda=False)
+    if set(kw) <= {"motion_model", "smoothing_method",
+                   "drone_high_freq_mode"}:
+        assert Stabilizer(params, mode=mode).params is params
+        return
     with pytest.raises(NotImplementedError, match="queue 1 item"):
+        Stabilizer(params, mode=mode)
+
+
+@pytest.mark.parametrize("kw", [
+    {"smoothing_method": "l1"}, {"smoothing_method": "median"},
+    {"motion_prediction": True}, {"motion_model": "affine"}])
+def test_unknown_or_unported_stabilizer_options_raise(kw):
+    """l1 is an offline smoother; ``motion_prediction`` waits for item 4."""
+    from video_stab_tpu_torch.core.stabilizer import Stabilizer
+    with pytest.raises(NotImplementedError):
         Stabilizer(tparams.StabilizerParams(**kw),
                    mode=tparams.ModeParams(use_cuda=False))
 

@@ -107,11 +107,15 @@ def test_state_round_trip_continues_like_jax(jittered_clip):
                                             jp.ransac_hypotheses))
     h, w = frames[0].shape[:2]
     port.load_state_dict(np_state, h, w)
+    carried = state_to_numpy(port._state)
     for name in StabilizerState._fields:
-        if name not in ("key", "hf", "deepstab"):
+        if name == "hf":
+            for a, b in zip(carried["hf"], np_state.hf):
+                np.testing.assert_array_equal(a, np.asarray(b))
+        elif name not in ("key", "deepstab"):
             np.testing.assert_array_equal(
-                state_to_numpy(port._state)[name],
-                np.asarray(getattr(np_state, name)), err_msg=name)
+                carried[name], np.asarray(getattr(np_state, name)),
+                err_msg=name)
     for f in frames[12:17]:
         a, b = port.stabilize(f), js.stabilize(f)
         assert (a is None) == (b is None)
@@ -130,8 +134,11 @@ def test_state_numpy_round_trip():
                      prev_pts=torch.rand(32, 2))
     back = state_from_numpy(type("S", (), state_to_numpy(st)), "cpu")
     for name in StabilizerState._fields:
-        if name not in ("key", "hf", "deepstab"):
+        if name == "hf":
+            assert all(torch.equal(a, b) for a, b in zip(back.hf, st.hf))
+        elif name not in ("key", "deepstab"):
             assert torch.equal(getattr(back, name), getattr(st, name)), name
+    assert torch.equal(back.key.get_state(), st.key.get_state())
 
 
 def test_steady_state_reads_nothing_from_the_device(jittered_clip,

@@ -2,19 +2,21 @@
 ``video_stab_tpu/core/stabilizer.py``.
 
 Per frame:
-  analyze:  gray + resize -> sparse pyramidal LK -> RANSAC similarity (or
-            homography, conjugated to full resolution and mapped to sl(3))
-            -> push transform and path rings -> re-detect GFTT features
-            every ``redetect_interval``-th frame
-  emit:     box-smooth the path at the emit cursor -> similarity: motion-
-            intent correction scaling -> rigid matrix (composed with the
-            fused chain's roll rotation) -> one warp of the queued frame
-            (K1); homography: exp of the sl(3) correction -> one projective
-            warp (K2)
+  analyze:  gray + resize -> [drone mode: CLAHE after > 2 starved frames]
+            -> sparse pyramidal LK -> RANSAC similarity (or homography,
+            conjugated to full resolution and mapped to sl(3)) -> [drone
+            mode, similarity: the high-frequency chain] -> push transform
+            and path rings -> re-detect GFTT features every
+            ``redetect_interval``-th frame
+  emit:     smooth the path at the emit cursor (box, gaussian, kalman or
+            butterworth) -> similarity: motion-intent correction scaling ->
+            rigid matrix (composed with the fused chain's roll rotation) ->
+            one warp of the queued frame (K1); homography: exp of the sl(3)
+            correction -> one projective warp (K2)
 
-The port covers the similarity and homography models with box smoothing,
-black borders and GFTT. The other branches raise ``NotImplementedError``
-naming their ROADMAP queue-1 item.
+The port covers the similarity and homography models with every streaming
+smoother, the drone high-frequency mode, black borders and GFTT. The other
+branches raise ``NotImplementedError`` naming their ROADMAP queue-1 item.
 
 Steps are plain functions over an explicit ``StabilizerState`` of device
 tensors. The wrappers' steady state reads nothing back from the device:
@@ -46,9 +48,16 @@ from video_stab_tpu_torch.motion.estimate import estimate_similarity_ransac
 from video_stab_tpu_torch.motion.filters import (
     adaptive_radius,
     box_filter_emit,
+    butterworth_cascade,
+    gaussian_filter_emit,
+    gaussian_kernel,
+    jitter_frequency_cutoff,
+    kalman_init,
+    kalman_step,
     ring_get,
     ring_push,
 )
+from video_stab_tpu_torch.motion.hf import hf_apply
 from video_stab_tpu_torch.motion.homography import (
     estimate_homography_ransac,
     exp_homography,
@@ -60,6 +69,7 @@ from video_stab_tpu_torch.motion.intent import (
 )
 from video_stab_tpu_torch.ops.color import bgr_to_gray
 from video_stab_tpu_torch.ops.features import good_features_to_track
+from video_stab_tpu_torch.ops.filters import clahe
 from video_stab_tpu_torch.ops.lk import lk_track
 from video_stab_tpu_torch.ops.resize import resize_bilinear
 from video_stab_tpu_torch.ops.warp import (
@@ -78,6 +88,8 @@ PROJ_BUDGET_DEFAULT = 5e-6
 # the similarity model, (K, 4) for the homography model.
 RansacDraws = Optional[Callable[[torch.Tensor], torch.Tensor]]
 
+SMOOTHING_METHODS = ("box", "gaussian", "kalman", "butterworth")
+
 
 def check_supported(params: StabilizerParams) -> None:
     """Raise NotImplementedError for the branches this slice does not port,
@@ -87,12 +99,9 @@ def check_supported(params: StabilizerParams) -> None:
         todo.append(f"motion_model={params.motion_model} (unknown)")
     if params.deep_stabilization:
         todo.append("deep_stabilization (queue 1 item 9)")
-    if params.drone_high_freq_mode:
-        todo.append("drone_high_freq_mode / HF chain / conditional CLAHE "
-                    "(queue 1 item 6)")
-    if params.smoothing_method != "box":
-        todo.append(f"smoothing_method={params.smoothing_method} "
-                    "(queue 1 item 6)")
+    if params.smoothing_method not in SMOOTHING_METHODS:
+        todo.append(f"smoothing_method={params.smoothing_method} (unknown; "
+                    "l1 is offline only)")
     if params.border_pad > 0:
         todo.append(f"border_size > 0 (border_type={params.border_type}, "
                     f"crop_n_zoom, fade; queue 1 item 7)")
@@ -214,6 +223,14 @@ def stabilizer_analyze_step_fn(params: StabilizerParams,
     gray = _analysis_gray(params, frame_u8.float()) if analysis_gray is None \
         else analysis_gray
 
+    # Conditional CLAHE under feature starvation (drone mode): the analysis
+    # gray is enhanced after > 2 consecutive starved frames. The counter
+    # lives on the device, so CLAHE runs every frame and a select keeps or
+    # drops it: no host read, at the cost of its ~40 small launches.
+    if params.drone_high_freq_mode and params.enable_conditional_clahe:
+        gray = torch.where(state.starvation_counter > 2,
+                           clahe(gray, clip_limit=2.0, tile_grid=8), gray)
+
     curr_pts, status, _err = lk_track(
         state.prev_gray, gray, state.prev_pts, state.prev_mask,
         win=params.lk_window, max_level=params.lk_levels,
@@ -234,6 +251,19 @@ def stabilizer_analyze_step_fn(params: StabilizerParams,
             threshold=params.ransac_threshold,
             n_hypotheses=params.ransac_hypotheses, draws=draws)
         raw = torch.stack([m[0, 2], m[1, 2], torch.atan2(m[1, 0], m[0, 0])])
+
+    # Drone high-frequency vibration chain: a similarity-space heuristic,
+    # skipped by the homography model.
+    hf = state.hf
+    if params.drone_high_freq_mode and params.motion_model != "homography":
+        hf, raw = hf_apply(
+            hf, raw,
+            dead_zone_threshold=params.hf_dead_zone_threshold,
+            freeze_duration=params.hf_freeze_duration,
+            accumulator_decay=params.hf_motion_accumulator_decay,
+            shake_px=params.hf_shake_px,
+            rot_lp_alpha=params.hf_rot_lp_alpha,
+            horizon_lock=params.horizon_lock)
 
     # Push raw transform + cumulative path into the rings.
     n = state.n_path
@@ -256,7 +286,7 @@ def stabilizer_analyze_step_fn(params: StabilizerParams,
 
     new_state = state._replace(
         prev_gray=gray, prev_pts=prev_pts, prev_mask=prev_mask,
-        trans_ring=trans_ring, path_ring=path_ring, n_path=n,
+        trans_ring=trans_ring, path_ring=path_ring, n_path=n, hf=hf,
         starvation_counter=starvation,
         **_queue_frame(state, frame_u8, aux_roll))
     metrics = {
@@ -283,6 +313,42 @@ def smoothing_radius_band(params: StabilizerParams) -> tuple[int, int]:
     return 2, 8
 
 
+def _smoothed_at_emit(params: StabilizerParams, state: StabilizerState,
+                      e: torch.Tensor) -> tuple[StabilizerState, torch.Tensor]:
+    """The smoothed path value at emit index e, per ``smoothing_method``.
+    The kalman and butterworth cursors advance one step per emitted frame
+    (their value at e depends only on path[0..e]); at e == 0 they start
+    from the first sample, selected on the device."""
+    method = params.smoothing_method
+    if method == "gaussian":
+        kernel = gaussian_kernel(params.gaussian_sigma,
+                                 state.path_ring.device)
+        return state, gaussian_filter_emit(state.path_ring, state.n_path, e,
+                                           kernel)
+    if method == "butterworth":
+        cutoff = jitter_frequency_cutoff(params.jitter_frequency)
+        z = ring_get(state.path_ring, e)
+        first = e == 0
+        bst, sm = butterworth_cascade(state.butter_state, z, cutoff, 4)
+        bst = torch.where(first, z.expand(4, -1), bst)
+        return state._replace(butter_state=bst), torch.where(first, z, sm)
+    if method == "kalman":
+        z = ring_get(state.path_ring, e)
+        first = e == 0
+        st, sm = kalman_step({"x": state.kalman_x, "p": state.kalman_p}, z)
+        st0 = kalman_init(z)
+        return state._replace(
+            kalman_x=torch.where(first, st0["x"], st["x"]),
+            kalman_p=torch.where(first, st0["p"], st["p"])), \
+            torch.where(first, z, sm)
+    # Box filter with the adaptive radius, re-clamped to the mode's band.
+    ar = adaptive_radius(state.path_ring, state.n_path,
+                         params.smoothing_radius)
+    r_lo, r_max = smoothing_radius_band(params)
+    r = torch.clamp(ar, r_lo, r_max)
+    return state, box_filter_emit(state.path_ring, state.n_path, e, r, r_max)
+
+
 def stabilizer_emit_step_fn(params: StabilizerParams, state: StabilizerState
                             ) -> tuple[StabilizerState, torch.Tensor]:
     """Emit the oldest queued frame, stabilized (applyNextSmoothTransform)."""
@@ -296,12 +362,7 @@ def stabilizer_emit_step_fn(params: StabilizerParams, state: StabilizerState
     e_path = torch.minimum(e, state.n_path - 1)
     path_e = ring_get(state.path_ring, e_path)
 
-    ar = adaptive_radius(state.path_ring, state.n_path,
-                         params.smoothing_radius)
-    r_lo, r_max = smoothing_radius_band(params)
-    r = torch.clamp(ar, r_lo, r_max)
-    smoothed = box_filter_emit(state.path_ring, state.n_path, e_path, r,
-                               r_max)
+    state, smoothed = _smoothed_at_emit(params, state, e_path)
     diff = smoothed - path_e
 
     q = state.frame_ring.shape[0]
@@ -387,10 +448,11 @@ def stabilizer_emit_gated_fn(params: StabilizerParams, state: StabilizerState
     emission-mutated fields) is held back and ``ready`` is False."""
     ready = (state.n_frames - state.emit_idx) >= params.effective_radius
     new_state, out = stabilizer_emit_step_fn(params, state)
-    new_state = new_state._replace(
-        emit_idx=torch.where(ready, new_state.emit_idx, state.emit_idx),
-        envelope_exceeded=torch.where(ready, new_state.envelope_exceeded,
-                                      state.envelope_exceeded))
+    held = {name: torch.where(ready, getattr(new_state, name),
+                              getattr(state, name))
+            for name in ("emit_idx", "kalman_x", "kalman_p", "butter_state",
+                         "envelope_exceeded")}
+    new_state = new_state._replace(**held)
     return new_state, out, ready
 
 

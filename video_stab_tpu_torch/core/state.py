@@ -1,18 +1,19 @@
 """Streaming state of the stabilizer, field for field with
 ``video_stab_tpu/core/state.py``.
 
-All fields are tensors on the stream's device except two:
-
-- ``key`` is the stream's ``torch.Generator`` (the JAX package's PRNG key),
-  seeded from ``params.seed``. It draws RANSAC's hypotheses; JAX's own
-  draws cannot be reproduced by it, so callers that need the JAX package's
-  estimates inject those draws instead (``Stabilizer(ransac_draws=...)``).
-- ``hf`` is a placeholder (``()``) until the drone high-frequency chain
-  (``motion/hf.py``) is ported.
+All fields are tensors on the stream's device, ``hf`` a tuple of them (the
+drone high-frequency chain's ``motion.hf.HFState``), except ``key``: the
+stream's ``torch.Generator`` (the JAX package's PRNG key), seeded from
+``params.seed``. It draws RANSAC's hypotheses; JAX's own draws cannot be
+reproduced by it, so callers that need the JAX package's estimates inject
+those draws instead (``Stabilizer(ransac_draws=...)``).
 
 ``state_from_numpy`` / ``state_to_numpy`` convert between this state and
 the JAX package's ``StabilizerState`` as a tree of numpy arrays (what its
-``Stabilizer.state_dict()`` returns).
+``Stabilizer.state_dict()`` returns). The port's own tree has two entries
+more, ``key_state`` and ``key_device``: the generator's position in its
+stream and the kind of device it belongs to, so that a saved stream
+resumes its draws where it left off.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+
+from video_stab_tpu_torch.motion.hf import HFState, hf_init
 
 # Ring capacity for path/transform histories (state.py PATH_RING).
 PATH_RING = 128
@@ -42,7 +45,7 @@ class StabilizerState(NamedTuple):
     kalman_x: torch.Tensor         # (2, C) f32
     kalman_p: torch.Tensor         # (2, 2, C) f32
     butter_state: torch.Tensor     # (4, C) f32
-    hf: Any                        # placeholder until motion/hf.py is ported
+    hf: HFState                    # drone high-frequency chain state
     fade_history: torch.Tensor     # (1, 1, 3) f32 (fade border not ported)
     fade_count: torch.Tensor       # int32
     canvas: torch.Tensor           # (1, 1, 3) f32 (virtual canvas not ported)
@@ -94,7 +97,7 @@ def stabilizer_state_init(params, height: int, width: int,
         kalman_x=zeros(2, c),
         kalman_p=zeros(2, 2, c),
         butter_state=zeros(4, c),
-        hf=(),
+        hf=hf_init(device),
         fade_history=zeros(1, 1, 3),
         fade_count=i32(),
         canvas=zeros(1, 1, 3),
@@ -116,37 +119,65 @@ def _key_seed(key: Any) -> int:
     return seed & ((1 << 63) - 1)
 
 
-def state_from_numpy(np_state: Any, device: torch.device) -> StabilizerState:
-    """The port's state from the JAX package's ``StabilizerState`` as a
-    tree of numpy arrays (``video_stab_tpu`` ``Stabilizer.state_dict()``).
+def _field(np_state: Any, name: str) -> Any:
+    return np_state.get(name) if isinstance(np_state, dict) \
+        else getattr(np_state, name, None)
 
-    The JAX key becomes a torch.Generator seeded from the key's words; its
-    draws are not JAX's, so a caller continuing a stream with the JAX
-    package's estimates injects JAX's draws (from the same key chain). The
-    drone chain's ``hf`` state and the fade/canvas buffers are not carried
-    (those branches are not ported)."""
+
+def _tensor(value: Any, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.array(value)).to(device)
+
+
+def state_from_numpy(np_state: Any, device: torch.device) -> StabilizerState:
+    """The port's state from a tree of numpy arrays: the JAX package's
+    ``StabilizerState`` (``video_stab_tpu`` ``Stabilizer.state_dict()``) or
+    this package's ``state_to_numpy`` dict (or an object with its entries
+    as attributes).
+
+    The key becomes a torch.Generator. A tree of this package carries the
+    generator's state (``key_state``), restored when it was saved on the
+    same kind of device, so the stream continues its own draws. A JAX key
+    seeds a fresh generator from its words; its draws are not JAX's, so a
+    caller continuing a stream with the JAX package's estimates injects
+    JAX's draws (from the same key chain). ``hf`` (a tuple or a dict of
+    the HFState fields), ``kalman_x`` / ``kalman_p`` / ``butter_state`` are
+    carried; the fade and canvas buffers are not (not ported)."""
+    device = torch.device(device)
     fields = {}
     for name in StabilizerState._fields:
-        if name in ("hf", "deepstab"):
+        value = _field(np_state, name)
+        if name == "deepstab":
             fields[name] = ()
+        elif name == "hf":
+            if isinstance(value, dict):
+                value = [value[f] for f in HFState._fields]
+            fields[name] = HFState(*(_tensor(v, device) for v in value))
         elif name == "key":
-            fields[name] = _generator(_key_seed(np_state.key), device)
+            gen = _generator(_key_seed(value), device)
+            saved = _field(np_state, "key_state")
+            if saved is not None and \
+                    str(_field(np_state, "key_device")) == device.type:
+                gen.set_state(torch.from_numpy(
+                    np.array(saved, dtype=np.uint8)))
+            fields[name] = gen
         elif name in ("fade_history", "canvas", "canvas_weight"):
             shape = {"fade_history": (1, 1, 3), "canvas": (1, 1, 3),
                      "canvas_weight": (1, 1)}[name]
             fields[name] = torch.zeros(shape, dtype=torch.float32,
                                        device=device)
         else:
-            fields[name] = torch.from_numpy(
-                np.array(getattr(np_state, name))).to(device)
+            fields[name] = _tensor(value, device)
     return StabilizerState(**fields)
 
 
 def state_to_numpy(state: StabilizerState) -> dict:
     """The port's state as a dict of numpy arrays with the JAX package's
     field names. ``key`` is the generator's initial seed as a
-    ``jax.random.PRNGKey``-shaped uint32 pair (the generator's position in
-    its stream is not carried); ``hf``/``deepstab`` are empty."""
+    ``jax.random.PRNGKey``-shaped uint32 pair; ``key_state`` (uint8) is the
+    generator's ``get_state()``, its position in its stream, and
+    ``key_device`` the device type it belongs to (a CPU and a CUDA
+    generator's states do not interchange); ``hf`` is a tuple of arrays in
+    HFState's field order; ``deepstab`` is empty."""
     out = {}
     for name in StabilizerState._fields:
         v = getattr(state, name)
@@ -154,6 +185,10 @@ def state_to_numpy(state: StabilizerState) -> dict:
             seed = v.initial_seed()
             out[name] = np.asarray([(seed >> 32) & 0xFFFFFFFF,
                                     seed & 0xFFFFFFFF], np.uint32)
+            out["key_state"] = v.get_state().cpu().numpy().copy()
+            out["key_device"] = v.device.type
+        elif name == "hf":
+            out[name] = HFState(*(t.detach().cpu().numpy() for t in v))
         elif isinstance(v, torch.Tensor):
             out[name] = v.detach().cpu().numpy()
         else:

@@ -42,8 +42,10 @@ _SIGNATURES = {
     # gamma, stream
     "vs_enhance_u8": (_P, _P, _P, ctypes.c_longlong, _P, _I, _F, _F, _I, _F,
                       _P),
-    # x, n, c, offset, window, pad, centered, r, out, stream
-    "vs_box_window": (_P, _I, _I, _I, _I, _P, _I, _I, _P, _P),
+    # x, n, c, offset, window, pad, median, centered, r, blocks, threads,
+    # tile_rows, smem_bytes, out, stream
+    "vs_box_window": (_P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I,
+                      _P, _P),
     # planes, sizes, n_levels, prev_pts, mask, init_pts, n, win, iters,
     # eps2, min_eig_thresh, out_pts, status, err, steps, stream
     "vs_lk_track": (_P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P,

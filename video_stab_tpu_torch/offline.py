@@ -4,7 +4,8 @@
 When the whole clip is available (file workflows, re-encode farms) the
 clip lives on the device: motion analysis walks the frames in order (the
 one true sequential dependency), the path is smoothed in one whole-path
-filter (K5b, ``kernels/traj.py``), and every frame is warped once (K1 for
+filter (box: K5b, ``kernels/traj.py``; gaussian, kalman, butterworth or
+the L1-optimal path of ``motion/l1path.py``), and every frame is warped once (K1 for
 the similarity model, K2 for the homography model). At 1080p a 240-frame
 clip is 240 x 1080 x 1920 x 3 bytes = 1.49 GB in and as much out.
 
@@ -14,10 +15,12 @@ Stabilizer's border and crop semantics; ``stabilize_clip_device`` returns
 it as a tensor on the device. The device is explicit: ``device=``, or
 ``ModeParams.use_cuda`` through ``pick_device`` (no silent CPU fallback).
 
-Ported: box smoothing (K5b on a CUDA tensor, its plain version on a CPU
-tensor), black borders with ``border_size`` and ``crop_n_zoom``, both
-motion models. The gaussian, l1, kalman and
-butterworth smoothers raise ``NotImplementedError``.
+Ported: every smoother (box through K5b on a CUDA tensor and its plain
+version on a CPU tensor; gaussian, l1, kalman and butterworth as tensor
+ops on the clip's device), black borders with ``border_size`` and
+``crop_n_zoom``, both motion models. The kalman and butterworth start
+states are channel-generic, so the 9-channel log-homography path runs
+through them too.
 """
 
 from __future__ import annotations
@@ -40,11 +43,19 @@ from video_stab_tpu_torch.motion.estimate import (
     estimate_similarity_ransac,
     ransac_draws,
 )
+from video_stab_tpu_torch.motion.filters import (
+    butterworth_cascade,
+    gaussian_kernel,
+    jitter_frequency_cutoff,
+    kalman_init,
+    kalman_step,
+)
 from video_stab_tpu_torch.motion.homography import (
     estimate_homography_ransac,
     log_homography,
     smooth_homography_path,
 )
+from video_stab_tpu_torch.motion.l1path import l1_smooth_path
 from video_stab_tpu_torch.ops.color import saturate_u8
 from video_stab_tpu_torch.ops.features import good_features_to_track
 from video_stab_tpu_torch.ops.lk import lk_track
@@ -63,14 +74,15 @@ WARP_CHUNK = 8      # frames whose warp matrices are built together
 RansacDraws = Optional[Callable[[torch.Tensor], torch.Tensor]]
 
 
+SMOOTHING_METHODS = ("box", "gaussian", "l1", "kalman", "butterworth")
+
+
 def check_supported(params: StabilizerParams) -> None:
-    """Raise NotImplementedError for the smoothers the port does not have
-    yet, naming their ROADMAP queue-1 items."""
-    if params.smoothing_method != "box":
+    """Raise NotImplementedError for a motion model or a smoothing method
+    the package does not know."""
+    if params.smoothing_method not in SMOOTHING_METHODS:
         raise NotImplementedError(
-            f"offline smoothing_method={params.smoothing_method} is not "
-            "ported to video_stab_tpu_torch yet (ROADMAP queue 1 items 6 "
-            "and 10)")
+            f"offline smoothing_method={params.smoothing_method}")
     if params.motion_model not in ("similarity", "homography"):
         raise NotImplementedError(f"motion_model={params.motion_model}")
 
@@ -158,9 +170,45 @@ def _analyze_clip_homography(params: StabilizerParams,
 
 def _smooth_path(params: StabilizerParams, path: torch.Tensor
                  ) -> torch.Tensor:
-    """Whole-path box smoothing, r = clip(smoothing_radius, 2, 50), through
-    K5b (``box_filter_centered``) whatever ``params.use_pallas`` says."""
+    """Whole-path smoothing of a (T, C) path per ``smoothing_method``. Box:
+    r = clip(smoothing_radius, 2, 50), through K5b (``box_filter_centered``)
+    whatever ``params.use_pallas`` says. Kalman and butterworth walk the
+    path in order (T steps of tensor ops on the path's device, no host
+    read), from a start state of the path's own width C."""
     check_supported(params)
+    method = params.smoothing_method
+    n = path.shape[0]
+    if method == "gaussian":
+        k = gaussian_kernel(params.gaussian_sigma, path.device)
+        offs = torch.arange(k.shape[0], device=path.device) - k.shape[0] // 2
+        idx = torch.arange(n, device=path.device)[:, None] + offs[None, :]
+        idx = torch.where(idx < 0, -idx, idx)
+        idx = torch.where(idx > n - 1, 2 * n - 1 - idx, idx)
+        vals = path[idx.clamp(0, n - 1)]                      # (T, K, C)
+        return (vals * k[None, :, None]).sum(dim=1)
+    if method == "l1":
+        # The crop box: border_size px, or 20 px when borderless; 0.05 rad.
+        b = float(params.border_size) if params.border_size > 0 else 20.0
+        bound = torch.tensor([b, b, 0.05], dtype=path.dtype).to(path.device)
+        if path.shape[1] != 3:
+            raise ValueError("the l1 crop bound (px, px, rad) is defined "
+                             f"for a 3-channel path, got {path.shape[1]}")
+        return l1_smooth_path(path, bound)
+    if method == "butterworth":
+        cutoff = jitter_frequency_cutoff(params.jitter_frequency)
+        st = path[0].expand(4, -1)
+        outs = [path[0]]
+        for t in range(1, n):
+            st, out = butterworth_cascade(st, path[t], cutoff, 4)
+            outs.append(out)
+        return torch.stack(outs)
+    if method == "kalman":
+        st = kalman_init(path[0])
+        outs = [path[0]]
+        for t in range(1, n):
+            st, out = kalman_step(st, path[t])
+            outs.append(out)
+        return torch.stack(outs)
     return box_filter_centered(path, max(2, min(params.smoothing_radius, 50)))
 
 

@@ -1,5 +1,5 @@
-"""Time K3 and K6 against another version of their source, in one process
-on one card, and count where their clock cycles go.
+"""Time K3, K5a / K5b and K6 against another version of their source, in
+one process on one card, and count where K3's and K6's clock cycles go.
 
     git show <commit>:video_stab_tpu_torch/csrc/lk.cu > build/old_lk.cu
     git show <commit>:video_stab_tpu_torch/csrc/features.cu \\
@@ -7,6 +7,8 @@ on one card, and count where their clock cycles go.
     python3 -m video_stab_tpu_torch.tools.kernel_ab \\
         --old-lk build/old_lk.cu --old-features build/old_features.cu \\
         --old-features-launches 2 --cycles
+    git show <commit>:video_stab_tpu_torch/csrc/traj.cu > build/old_traj.cu
+    python3 -m video_stab_tpu_torch.tools.kernel_ab --old-traj build/old_traj.cu
 
 Each ``--old-*`` source is built beside the checkout's library with every
 kernel and ``vs_*`` name given the suffix ``_old``, checked against the
@@ -16,6 +18,16 @@ with it in turns (old, new, new, old) by ``chip_smoke.device_us``
 path's shapes: K6 at 540x960, 3 levels, 200 GFTT corners, eps 0.03 (and
 once at eps 1e-6, where most points run their whole step budget); K3 at
 540x960. An old ``vs_lk_track`` may lack the ``steps`` argument.
+
+``--old-traj`` takes the one-thread-per-output traj.cu (``vs_box_window(x,
+n, c, offset, window, pad, centered, r, out, stream)``) and calls it as its
+wrapper did: K5b with a ``torch.zeros`` pad, K5a after a ``torch.sort`` and
+an index for the median pad. Old and new are checked bit for bit against
+the plain versions and timed in turns at (240, 3), (240, 9) and (18000, 3):
+the kernel's device time, the whole call's device time (every kernel it
+launches), the call's time between CUDA events with the host's work, and
+its kernel launches; beside them the launch floor, an empty kernel with
+the new launch's grid, block and shared memory (``chip_smoke.py``).
 
 ``--cycles`` builds the checkout's lk.cu and features.cu once more with
 ``-DVS_CYCLES`` (suffix ``_cycles``), which makes each K6 block count its
@@ -47,6 +59,7 @@ import chip_smoke as cs  # noqa: E402
 from video_stab_tpu_torch.kernels import _lib  # noqa: E402
 from video_stab_tpu_torch.kernels import features as kfeat  # noqa: E402
 from video_stab_tpu_torch.kernels import lk as klk  # noqa: E402
+from video_stab_tpu_torch.kernels import traj as ktraj  # noqa: E402
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -118,6 +131,78 @@ def lk_call(lib, suffix, text, planes, pts, mask, win, iters, eps):
     return call
 
 
+def old_traj_calls(lib, suffix):
+    """The old wrappers over the old kernel: (centered(path, r),
+    convolve(path, r))."""
+    fn = getattr(lib, "vs_box_window" + suffix)
+    fn.argtypes = [_P, _I, _I, _I, _I, _P, _I, _I, _P, _P]
+
+    def launch(p2, offset, window, pad, centered, r):
+        out = torch.empty_like(p2)
+        rc = fn(p2.data_ptr(), p2.shape[0], p2.shape[1], offset, window,
+                pad.data_ptr(), centered, r, out.data_ptr(),
+                _lib.stream_handle(p2.device))
+        _lib.check(rc, "box_window" + suffix)
+        return out
+
+    def centered(path, r):
+        p2 = path.contiguous()
+        pad = torch.zeros(p2.shape[1], dtype=p2.dtype, device=p2.device)
+        return launch(p2, r, 2 * r + 1, pad, 1, r)
+
+    def convolve(path, r):
+        p2 = path.contiguous()
+        pad = torch.sort(p2, dim=0).values[p2.shape[0] // 2].contiguous()
+        return launch(p2, r, r, pad, 0, 0)
+    return centered, convolve
+
+
+def traj_ab(lib, kernels, dev):
+    """K5a / K5b, old against new in turns, at chip_smoke's phase-3
+    shapes."""
+    old_centered, old_convolve = old_traj_calls(lib, "_old")
+    launch_floor = cs.load_launch_floor(cs.start_launch_floor_build())
+    rng = np.random.default_rng(7)
+    for n, c in ((240, 3), (240, 9), (18000, 3)):
+        path = torch.from_numpy(np.cumsum(rng.normal(0, 1, (n, c)), axis=0)
+                                .astype(np.float32)).to(dev)
+        for name, r, old, new, plain in (
+                ("K5b", 15, old_centered, ktraj.box_filter_centered_cuda,
+                 ktraj.box_filter_centered_plain),
+                ("K5a", 8, old_convolve, ktraj.box_filter_convolve_cuda,
+                 ktraj.box_filter_convolve_plain)):
+            label = f"{name} ({n}, {c}) r={r}"
+            want = plain(path, r)
+            for which, fn in (("old", old), ("new", new)):
+                got = fn(path, r)
+                torch.cuda.synchronize()
+                print(f"{label} {which}: bit-exact against the plain "
+                      f"version {bool(torch.equal(got, want))}")
+                assert torch.equal(got, want), (label, which)
+            window = 2 * r + 1 if name == "K5b" else r
+            median = name == "K5a" and ktraj.median_in_kernel(n)
+            blocks, threads, _, smem = ktraj.launch_config(n, c, window,
+                                                           median)
+            floor = cs.device_us(
+                torch, lambda i: launch_floor(blocks, threads, smem),
+                ["launch_floor_kernel"])
+            print(f"{label}: launch floor {floor:.3f} us ({blocks} blocks x "
+                  f"{threads} threads, {smem} B shared)")
+            turns = (("old", old, kernels), ("new", new,
+                                             ["box_window_kernel(",
+                                              "box_median_kernel("]))
+            for which, fn, symbols in (turns[0], turns[1], turns[1],
+                                       turns[0]):
+                def call(_i=0, fn=fn):
+                    return fn(path, r)
+                print(f"{label} {which}: kernel "
+                      f"{cs.device_us(torch, call, symbols):.3f} us, whole "
+                      f"call on the device "
+                      f"{cs.device_us(torch, call, None):.3f} us, call "
+                      f"{cs.call_ms(torch, call):.4f} ms, "
+                      f"{cs.launches_of(torch, call)} kernel launches")
+
+
 def in_turns(label, old, new):
     """(name, fn, symbols, launches per call) of the old and the new
     kernel, timed old, new, new, old."""
@@ -149,6 +234,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old-lk", type=Path)
     ap.add_argument("--old-features", type=Path)
+    ap.add_argument("--old-traj", type=Path)
     ap.add_argument("--old-features-launches", type=int, default=1,
                     help="kernel launches per call of the old K3")
     ap.add_argument("--cycles", action="store_true")
@@ -169,6 +255,9 @@ def main() -> int:
                                                sp.lk_window, sp.lk_iters,
                                                eps, 1e-4)
 
+    if args.old_traj:
+        lib, kernels, _ = build_variant(args.old_traj, "_old")
+        traj_ab(lib, kernels, dev)
     if args.old_lk:
         lib, kernels, text = build_variant(args.old_lk, "_old")
         for eps in (0.03, 1e-6):
