@@ -642,3 +642,214 @@ def test_smoother_functions_match_cpu(dev):
                             .astype(np.float32))
     got = l1_smooth_path(path.to(dev), 20.0).cpu()
     assert float((got - l1_smooth_path(path, 20.0)).abs().max()) <= 1e-3
+
+
+# ---- K4's head and tail modes, the bordered emit, azc, i420, the prior ----
+
+@pytest.mark.parametrize("shape", [(1080, 1920), (37, 53), (64, 96)])
+@pytest.mark.parametrize("wb", [False, True])
+def test_enhance_head_and_tail_bit_for_bit(dev, shape, wb):
+    from video_stab_tpu_torch.core.params import EnhancerParams
+    from video_stab_tpu_torch.kernels import enhance as kenh
+    h, w = shape
+    rng = np.random.default_rng(h + w)
+    frame = torch.from_numpy(rng.integers(0, 256, (h, w, 3), np.uint8)) \
+        .to(dev)
+    p = EnhancerParams(brightness=5.0, contrast=1.1, gamma=0.9,
+                       enable_white_balance=wb, wb_strength=0.5)
+    scales = kenh.white_balance_scales(frame, 0.5) if wb else None
+    head = kenh.enhance_head_cuda(p, frame, scales)
+    torch.cuda.synchronize()
+    assert torch.equal(head, kenh.enhance_head_plain(p, frame, scales))
+    x = head * 1.4 - 30.0                   # a filter's out-of-range values
+    for gamma in (0.9, 1.0):
+        pg = EnhancerParams(gamma=gamma)
+        out, gray = kenh.enhance_tail_cuda(pg, x, want_gray=True)
+        p_out, p_gray = kenh.enhance_tail_plain(pg, x, want_gray=True)
+        torch.cuda.synchronize()
+        assert torch.equal(out, p_out) and torch.equal(gray, p_gray)
+    # A contiguous view 4 bytes into its buffer (not 16-byte aligned)
+    # takes the kernels' scalar loop.
+    buf = torch.empty(h * w * 3 + 1, device=dev)
+    buf[1:] = x.reshape(-1)
+    odd = buf[1:].view(h, w, 3)
+    assert odd.is_contiguous() and odd.data_ptr() % 16 != 0
+    out, gray = kenh.enhance_tail_cuda(EnhancerParams(gamma=0.9), odd, True)
+    p_out, p_gray = kenh.enhance_tail_plain(EnhancerParams(gamma=0.9), odd,
+                                            True)
+    assert torch.equal(out, p_out) and torch.equal(gray, p_gray)
+    raw = torch.empty(h * w * 3 + 1, dtype=torch.uint8, device=dev)
+    raw[1:] = frame.reshape(-1)
+    head = kenh.enhance_head_cuda(p, raw[1:].view(h, w, 3), scales)
+    assert torch.equal(head, kenh.enhance_head_plain(p, frame, scales))
+
+
+def test_enhance_frame_u8_full_route_on_the_card(dev):
+    """The full enhancer on the card (K4 head, the filters, K4 tail)
+    against the same route on the CPU."""
+    from video_stab_tpu_torch.core.enhancer import enhance_frame_u8
+    from video_stab_tpu_torch.core.params import EnhancerParams
+    from video_stab_tpu_torch.kernels import enhance as kenh
+    rng = np.random.default_rng(2)
+    frame = rng.integers(0, 256, (120, 160, 3), np.uint8)
+    p = EnhancerParams(brightness=5.0, contrast=1.1, gamma=0.9,
+                       enable_clahe=True, enable_vibrance=True,
+                       enable_unsharp=True, sharpness=1.0,
+                       enable_denoise=True, denoise_strength=5.0)
+    heads, tails = kenh.HEAD_LAUNCHES, kenh.TAIL_LAUNCHES
+    got, gray = enhance_frame_u8(p, torch.from_numpy(frame).to(dev), True)
+    assert (kenh.HEAD_LAUNCHES - heads, kenh.TAIL_LAUNCHES - tails) == (1, 1)
+    want, want_gray = enhance_frame_u8(p, torch.from_numpy(frame), True)
+    # CLAHE bins truncate Lab L, and the card's pow differs from the CPU's
+    # by an ulp: a pixel may take the next bin's LUT value, which the
+    # unsharp mask and the bilateral spread to its neighbours.
+    d = (got.cpu().int() - want.int()).abs()
+    assert float((d <= 1).float().mean()) >= 0.99
+    dg = (gray.cpu() - want_gray).abs()
+    assert float((dg <= 1.0).float().mean()) >= 0.99
+
+
+BORDER_TYPES = ["black", "replicate", "reflect", "reflect_101", "wrap",
+                "fade", "crop_n_zoom"]
+
+
+@pytest.mark.parametrize("border", BORDER_TYPES)
+@pytest.mark.parametrize("model", ["similarity", "homography"])
+def test_bordered_emit_matches_the_cpu(dev, border, model):
+    """One bordered emit warp (K1 or K2 around the pad, the fade blend or
+    the crop-and-zoom) on the card against the CPU, three emits in a row
+    for the fade history."""
+    from video_stab_tpu_torch.core import stabilizer as tstab
+    from video_stab_tpu_torch.core.params import StabilizerParams
+    from video_stab_tpu_torch.core.state import stabilizer_state_init
+    from video_stab_tpu_torch.ops.warp import BORDER_CONSTANT
+    kw = dict(border_size=12, border_type=border)
+    if border == "crop_n_zoom":
+        kw = dict(border_size=12, crop_n_zoom=True)
+    p = StabilizerParams(**kw, motion_model=model, fade_duration=3)
+    frame = torch.from_numpy(
+        _textured(90, 120, 3).astype(np.uint8)[:, :, None].repeat(3, 2))
+    outs = {}
+    for d in (torch.device("cpu"), dev):
+        st = stabilizer_state_init(p, 90, 120, d)
+        f = frame.to(d)
+        if model == "homography":
+            m = torch.tensor([[1.01, 0.02, -3.0], [-0.015, 0.99, 2.5],
+                              [1e-5, -2e-5, 1.0]], device=d)
+            warp = lambda img, m=m: tstab.warp_perspective_fast(  # noqa: E731
+                img, m, border_mode=BORDER_CONSTANT)
+        else:
+            m = torch.from_numpy(_rigid(1.5, 3.3, -2.1, cx=60, cy=45)
+                                 .astype(np.float32)).to(d)
+            warp = lambda img, m=m: tstab.warp_affine_u8(  # noqa: E731
+                img, m, border_mode=BORDER_CONSTANT)
+        seq = []
+        for _ in range(3):
+            st, out = tstab._warp_bordered(p, st, f, warp)
+            seq.append(out.cpu())
+        outs[d.type] = (seq, st.fade_history.cpu(), int(st.fade_count))
+    (c_seq, c_hist, c_n), (g_seq, g_hist, g_n) = outs["cpu"], outs["cuda"]
+    assert c_n == g_n
+    for a, b in zip(c_seq, g_seq):
+        assert a.shape == b.shape
+        if model == "similarity":
+            assert torch.equal(a, b)
+        else:
+            # The homography's inverse is torch ops on each device; the
+            # card's linalg.cross fuses its multiply-adds, which moves a
+            # source coordinate by an ulp and can flip a .5 rounding tie.
+            d = (a.int() - b.int()).abs()
+            assert int(d.max()) <= 1
+            assert float((d == 0).float().mean()) >= 0.999
+    assert torch.allclose(c_hist, g_hist, atol=1e-4, rtol=0)
+
+
+def test_auto_zoom_crop_and_i420_match_the_cpu(dev):
+    import cv2
+
+    from video_stab_tpu_torch.core import autozoomcrop as tazc
+    from video_stab_tpu_torch.core.params import AutoZoomCropParams
+    from video_stab_tpu_torch.ops.color import bgr_to_i420
+    img = _textured(360, 640, 4).astype(np.uint8)[:, :, None].repeat(3, 2)
+    m = cv2.getRotationMatrix2D((320.0, 180.0), 6.0, 1.0)
+    img = cv2.warpAffine(img, m, (640, 360))
+    for keep in (True, False):
+        p = AutoZoomCropParams(keep_input_size=keep)
+        reads = tazc.RECT_READS
+        got = tazc.auto_zoom_crop_step(p, torch.from_numpy(img).to(dev))
+        gpu_reads = tazc.RECT_READS - reads
+        want = tazc.auto_zoom_crop_step(p, torch.from_numpy(img))
+        assert tazc.RECT_READS - reads == 2 * gpu_reads
+        d = (got.cpu().int() - want.int()).abs()
+        assert int(d.max()) <= 1 and float((d == 0).float().mean()) >= 0.999
+        rect_g = tazc.interior_rect(torch.from_numpy(
+            (img[..., 0] > 10).astype(np.float32) * 255).to(dev))
+        rect_c = tazc.interior_rect(torch.from_numpy(
+            (img[..., 0] > 10).astype(np.float32) * 255))
+        assert torch.equal(rect_g.cpu(), rect_c)
+    y_g = bgr_to_i420(torch.from_numpy(img).to(dev)).cpu()
+    y_c = bgr_to_i420(torch.from_numpy(img))
+    d = (y_g.int() - y_c.int()).abs()
+    assert int(d.max()) <= 1 and float((d == 0).float().mean()) >= 0.999
+
+
+def test_translation_prior_matches_the_cpu(dev):
+    from video_stab_tpu_torch.ops.lk import global_translation_prior
+    world = _textured(160, 200, 5)
+    prev = np.ascontiguousarray(world[20:155, 20:140])
+    for dx, dy in ((0, 0), (7, -4), (-13, 9)):
+        curr = np.ascontiguousarray(world[20 - dy:155 - dy,
+                                          20 - dx:140 - dx])
+        g = global_translation_prior(torch.from_numpy(prev).to(dev),
+                                     torch.from_numpy(curr).to(dev))
+        c = global_translation_prior(torch.from_numpy(prev),
+                                     torch.from_numpy(curr))
+        assert torch.equal(g.cpu(), c) and c.tolist() == [dx, dy]
+
+
+def test_pipelined_chain_on_the_card(dev):
+    """The pipelined chain's pinned copies hand back the unpipelined
+    chain's frames one call late, I420 and two-pass roll included."""
+    from video_stab_tpu_torch.core.chain import ProcessingChain
+    from video_stab_tpu_torch.core.params import (AutoZoomCropParams,
+                                                  EnhancerParams, ModeParams,
+                                                  RollCorrectionParams,
+                                                  StabilizerParams)
+    rng = np.random.default_rng(8)
+    frames = [np.ascontiguousarray(np.roll(
+        _textured(96, 128, 6), tuple(rng.integers(-3, 4, 2)), (0, 1))
+        .astype(np.uint8)[:, :, None].repeat(3, 2)) for _ in range(12)]
+    kw = dict(mode=ModeParams(enhancer_enabled=True,
+                              roll_correction_enabled=True,
+                              stabilizer_enabled=True),
+              enhancer=EnhancerParams(contrast=1.1, enable_unsharp=True,
+                                      sharpness=1.0),
+              roll=RollCorrectionParams(angle_filter_min=-70.0,
+                                        angle_filter_max=70.0),
+              stabilizer=StabilizerParams(
+                  smoothing_radius=5, analysis_width=64, analysis_height=48,
+                  max_corners=32, ransac_hypotheses=32,
+                  motion_prediction=True),
+              azc=AutoZoomCropParams(enabled=True), output_format="i420")
+    draws = np.random.default_rng(9).random((len(frames), 32, 2))
+
+    def inject(k):
+        it = iter(range(len(frames)))
+
+        def f(n_valid):
+            hi = max(int(n_valid), 1)
+            return torch.from_numpy(np.minimum(np.floor(draws[next(it)] * hi),
+                                               hi - 1).astype(np.int64))
+        return f
+    plain = ProcessingChain(**kw, ransac_draws=inject(0))
+    piped = ProcessingChain(**kw, pipelined=True, ransac_draws=inject(1))
+    want = [o for o in (plain.process(f) for f in frames) if o is not None]
+    got = [o for o in (piped.process(f) for f in frames) if o is not None]
+    while (o := plain.flush()) is not None:
+        want.append(o)
+    while (o := piped.flush()) is not None:
+        got.append(o)
+    assert len(got) == len(want) > 0
+    for a, b in zip(got, want):
+        assert a.shape == (144, 128)
+        np.testing.assert_array_equal(a, b)

@@ -132,15 +132,15 @@ def test_use_cuda_without_a_device_raises(monkeypatch):
     {"motion_model": "homography", "border_size": 10},
     {"motion_model": "homography", "drone_high_freq_mode": True}])
 def test_unported_stabilizer_branches_raise(kw):
-    """Both motion models run with every streaming smoother and with the
-    drone high-frequency mode (those cases construct); with borders, the
+    """Both motion models run with every streaming smoother, the drone
+    high-frequency mode and borders (those cases construct); with the
     virtual canvas, another detector or deep stabilization the Stabilizer
     still raises, naming the ROADMAP item."""
     from video_stab_tpu_torch.core.stabilizer import Stabilizer
     params = tparams.StabilizerParams(**kw)
     mode = tparams.ModeParams(use_cuda=False)
     if set(kw) <= {"motion_model", "smoothing_method",
-                   "drone_high_freq_mode"}:
+                   "drone_high_freq_mode", "border_size"}:
         assert Stabilizer(params, mode=mode).params is params
         return
     with pytest.raises(NotImplementedError, match="queue 1 item"):
@@ -149,9 +149,9 @@ def test_unported_stabilizer_branches_raise(kw):
 
 @pytest.mark.parametrize("kw", [
     {"smoothing_method": "l1"}, {"smoothing_method": "median"},
-    {"motion_prediction": True}, {"motion_model": "affine"}])
+    {"feature_detector": "orb"}, {"motion_model": "affine"}])
 def test_unknown_or_unported_stabilizer_options_raise(kw):
-    """l1 is an offline smoother; ``motion_prediction`` waits for item 4."""
+    """l1 is an offline smoother; ORB waits for queue 1 item 9."""
     from video_stab_tpu_torch.core.stabilizer import Stabilizer
     with pytest.raises(NotImplementedError):
         Stabilizer(tparams.StabilizerParams(**kw),
@@ -161,6 +161,9 @@ def test_unknown_or_unported_stabilizer_options_raise(kw):
 @pytest.mark.parametrize("what", ["azc", "i420", "two_pass", "pipelined",
                                   "clahe"])
 def test_unported_chain_variants_raise(what):
+    """The chain variants and the enhancer stages that once raised are
+    ported: each constructs (the CLAHE enhancer runs); only the
+    stabilizer's unported branches still raise through the chain."""
     from video_stab_tpu_torch.core.chain import ProcessingChain
     from video_stab_tpu_torch.core.enhancer import enhance_frame
     mode = tparams.ModeParams(use_cuda=False, enhancer_enabled=True,
@@ -178,9 +181,14 @@ def test_unported_chain_variants_raise(what):
         kw["pipelined"] = True
     else:
         enh = tparams.EnhancerParams(enable_clahe=True)
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-            enhance_frame(enh, torch.zeros((4, 4, 3)))
-        return
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        out = enhance_frame(enh, torch.full((16, 16, 3), 90.0))
+        assert out.shape == (16, 16, 3)
+    ch = ProcessingChain(mode, enh, tparams.RollCorrectionParams(),
+                         tparams.StabilizerParams(), **kw)
+    assert ch.pipelined == (what == "pipelined")
+    assert ch.params.roll_fusion_active == (what in ("i420", "pipelined",
+                                                     "clahe"))
+    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         ProcessingChain(mode, enh, tparams.RollCorrectionParams(),
-                        tparams.StabilizerParams(), **kw)
+                        tparams.StabilizerParams(feature_detector="brisk"),
+                        **kw)

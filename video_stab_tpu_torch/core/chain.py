@@ -7,9 +7,20 @@ estimated from that gray; only the ANALYSIS-scale gray is rotated (K1);
 the frame is queued unrotated and the roll rotation is composed into the
 stabilizer's emit warp (K1), one full-res resample in all.
 
-Not ported yet (``NotImplementedError``, ROADMAP queue 1 item 8): the
-two-pass roll order (fusion inactive with roll correction on), auto
-zoom-crop, the ``i420`` delivered format and the pipelined wrapper.
+Otherwise (the two-pass order: roll bands wider than 15 deg, auto
+zoom-crop, the homography model, borders) the enhanced frame, saturated
+by K4 (its tail mode with the full enhancer), is rotated whole by K1 with
+BORDER_REPLICATE, auto zoom-cropped when asked, and handed to the
+stabilizer. The roll angle is estimated from K4's gray of the unsaturated
+frame, as the JAX package estimates it from the float frame. In the
+<= 15 deg band the JAX warp quantizes its input to u8 too, so K1 matches
+it exactly; in the wider band the JAX package warps (and zoom-crops) the
+unsaturated float, and the port's frame may differ from it by one level.
+
+``output_format="i420"`` converts each delivered frame to planar I420 on
+the device. ``ProcessingChain(pipelined=True)`` hands back each frame one
+call late: on CUDA, ``process()`` copies frame i - 1 to pinned host memory
+on a side stream while frame i runs.
 """
 
 from __future__ import annotations
@@ -21,6 +32,7 @@ import numpy as np
 import torch
 
 from video_stab_tpu_torch import pick_device
+from video_stab_tpu_torch.core.autozoomcrop import auto_zoom_crop_f32
 from video_stab_tpu_torch.core.enhancer import enhance_frame_u8
 from video_stab_tpu_torch.core.params import (
     AutoZoomCropParams,
@@ -38,6 +50,7 @@ from video_stab_tpu_torch.core.stabilizer import (
     RansacDraws,
     _analysis_gray,
     as_device_frame,
+    check_supported as check_stabilizer_supported,
     stabilizer_analyze_step_fn,
     stabilizer_emit_gated_fn,
     stabilizer_emit_step_fn,
@@ -48,7 +61,12 @@ from video_stab_tpu_torch.core.state import (
     state_from_numpy,
     stabilizer_state_init,
 )
-from video_stab_tpu_torch.ops.color import bgr_to_gray
+from video_stab_tpu_torch.kernels.warp import warp_affine_u8
+from video_stab_tpu_torch.ops.color import (
+    bgr_to_gray,
+    bgr_to_i420,
+    saturate_u8,
+)
 from video_stab_tpu_torch.ops.warp import (
     BORDER_REPLICATE,
     rotation_matrix_2d,
@@ -108,19 +126,11 @@ class ChainState(NamedTuple):
 
 
 def check_supported(params: ChainParams) -> None:
-    """Raise NotImplementedError for the chain variants this slice does not
-    port (ROADMAP queue 1 item 8)."""
-    todo = []
-    if params.azc.enabled:
-        todo.append("auto zoom-crop (azc)")
-    if params.output_format != "bgr":
-        todo.append(f"output_format={params.output_format!r}")
-    if params.mode.roll_correction_enabled and not params.roll_fusion_active:
-        todo.append("the two-pass roll order (roll fusion inactive)")
-    if todo:
-        raise NotImplementedError(
-            "not ported to video_stab_tpu_torch yet: " + "; ".join(todo)
-            + " (ROADMAP queue 1 item 8)")
+    """Raise NotImplementedError for the stabilizer branches the port does
+    not have yet (deep stabilization, the virtual canvas, detectors other
+    than GFTT), when the chain runs the stabilizer."""
+    if params.mode.stabilizer_enabled:
+        check_stabilizer_supported(params.stabilizer)
 
 
 def chain_state_init(params: ChainParams, height: int, width: int,
@@ -142,10 +152,27 @@ def chain_state_from_numpy(roll_angle, stab_state, device: torch.device
 
 def _pre_stages(params: ChainParams, state: ChainState,
                 frame_u8: torch.Tensor):
-    """Enhance only (the roll-off case of the JAX two-pass pre-stages)."""
+    """The two-pass pre-stages: enhance (K4) and, with roll correction,
+    estimate the angle from the unsaturated frame's gray, rotate the
+    saturated frame whole (K1, BORDER_REPLICATE) and auto zoom-crop it.
+    Returns (roll_state, u8 frame)."""
+    roll_on = params.mode.roll_correction_enabled
     if params.mode.enhancer_enabled:
-        frame_u8, _ = enhance_frame_u8(params.enhancer, frame_u8)
-    return state.roll, frame_u8
+        f_u8, gray = enhance_frame_u8(params.enhancer, frame_u8,
+                                      want_gray=roll_on)
+    else:
+        f_u8 = frame_u8
+        gray = bgr_to_gray(frame_u8.float()) if roll_on else None
+    if not roll_on:
+        return state.roll, f_u8
+    roll_state = estimate_roll_angle(params.roll, state.roll, gray)
+    h, w = f_u8.shape[:2]
+    rot = rotation_matrix_2d(w / 2.0, h / 2.0, roll_state.smoothed_angle)
+    f_u8 = warp_affine_u8(f_u8, rot, border_mode=BORDER_REPLICATE)
+    if params.azc.enabled:
+        f_u8 = saturate_u8(auto_zoom_crop_f32(params.azc, f_u8.float(),
+                                              keep_input_size=True))
+    return roll_state, f_u8
 
 
 def _pre_stages_fused(params: ChainParams, state: ChainState,
@@ -177,6 +204,14 @@ def _pre_stages_fused(params: ChainParams, state: ChainState,
     gray_rot = warp_affine_fast(gray, a_mat, border_mode=BORDER_REPLICATE)
     gray_rot = torch.where(alpha == 0.0, gray, gray_rot.to(torch.float32))
     return roll_state, f_u8, alpha, gray_rot
+
+
+def _deliver(params: ChainParams, out_u8: torch.Tensor) -> torch.Tensor:
+    """The delivered format: planar I420 on the device for
+    ``output_format="i420"``, else the BGR frame."""
+    if params.output_format == "i420":
+        return bgr_to_i420(out_u8)
+    return out_u8
 
 
 def chain_init_step_fn(params: ChainParams, state: ChainState,
@@ -212,7 +247,8 @@ def chain_gated_step_fn(params: ChainParams, state: ChainState,
             sp, state.stab, f, aux_roll=alpha, analysis_gray=gray_rot,
             redetect_tick=redetect_tick, ransac_draws=ransac_draws)
         stab, out, ready = stabilizer_emit_gated_fn(sp, stab)
-        return ChainState(roll=roll_state, stab=stab), out, ready
+        return (ChainState(roll=roll_state, stab=stab),
+                _deliver(params, out), ready)
     roll_state, f = _pre_stages(params, state, frame_u8)
     if params.mode.stabilizer_enabled:
         stab, _metrics = stabilizer_analyze_step_fn(
@@ -222,7 +258,8 @@ def chain_gated_step_fn(params: ChainParams, state: ChainState,
     else:
         stab, out = state.stab, f
         ready = torch.ones((), dtype=torch.bool, device=f.device)
-    return ChainState(roll=roll_state, stab=stab), out, ready
+    return ChainState(roll=roll_state, stab=stab), _deliver(params, out), \
+        ready
 
 
 def chain_step_fn(params: ChainParams, state: ChainState,
@@ -235,13 +272,51 @@ def chain_step_fn(params: ChainParams, state: ChainState,
     return state, out
 
 
+def chain_analyze_step_fn(params: ChainParams, state: ChainState,
+                          frame_u8: torch.Tensor,
+                          redetect_tick: Optional[int] = None,
+                          ransac_draws: RansacDraws = None) -> ChainState:
+    """Warm-up variant: pre-stages + analyze without emitting, so the
+    look-ahead queue fills to effective_radius."""
+    check_supported(params)
+    if params.roll_fusion_active:
+        roll_state, f, alpha, gray_rot = _pre_stages_fused(params, state,
+                                                           frame_u8)
+        stab, _metrics = stabilizer_analyze_step_fn(
+            params.stabilizer_eff, state.stab, f, aux_roll=alpha,
+            analysis_gray=gray_rot, redetect_tick=redetect_tick,
+            ransac_draws=ransac_draws)
+        return ChainState(roll=roll_state, stab=stab)
+    roll_state, f = _pre_stages(params, state, frame_u8)
+    stab, _metrics = stabilizer_analyze_step_fn(
+        params.stabilizer, state.stab, f, redetect_tick=redetect_tick,
+        ransac_draws=ransac_draws)
+    return ChainState(roll=roll_state, stab=stab)
+
+
 def chain_flush_step_fn(params: ChainParams, state: ChainState
                         ) -> tuple[ChainState, torch.Tensor]:
-    """Emit-only step: drain one frame from the look-ahead queue."""
+    """Emit-only step: drain one frame from the look-ahead queue, through
+    the delivered format."""
     sp = params.stabilizer_eff if params.roll_fusion_active \
         else params.stabilizer
     stab, out = stabilizer_emit_step_fn(sp, state.stab)
-    return ChainState(roll=state.roll, stab=stab), out
+    return ChainState(roll=state.roll, stab=stab), _deliver(params, out)
+
+
+class _InFlight(NamedTuple):
+    """A pipelined output: the device frame and, once ``process`` has
+    started it, its copy to pinned host memory and the event that ends it."""
+
+    out: torch.Tensor
+    host: Optional[torch.Tensor] = None
+    copied: Optional[torch.cuda.Event] = None
+
+    def numpy(self) -> np.ndarray:
+        if self.host is None:
+            return self.out.cpu().numpy()
+        self.copied.synchronize()
+        return self.host.numpy()
 
 
 class ProcessingChain:
@@ -249,7 +324,13 @@ class ProcessingChain:
     API: returns None during the stabilizer warm-up, frames after.
 
     The device is picked once, from ``mode.use_cuda`` (CUDA by default,
-    raising without one). ``ransac_draws``: see ``Stabilizer``."""
+    raising without one). ``ransac_draws``: see ``Stabilizer``.
+
+    ``pipelined=True`` hands back each frame one call late: ``process``
+    returns frame i - 1, whose device-to-host copy ran while frame i was
+    computed (on CUDA a side stream copies it to pinned memory; an event
+    ends the copy before the buffer is read). ``drain()`` fetches the last
+    in-flight frame; ``flush()`` returns it first."""
 
     def __init__(self, mode: ModeParams, enhancer: EnhancerParams,
                  roll: RollCorrectionParams, stabilizer: StabilizerParams,
@@ -259,10 +340,6 @@ class ProcessingChain:
                  ransac_draws: RansacDraws = None):
         if output_format not in ("bgr", "i420"):
             raise ValueError(f"unknown output_format {output_format!r}")
-        if pipelined:
-            raise NotImplementedError(
-                "not ported to video_stab_tpu_torch yet: pipelined=True "
-                "(ROADMAP queue 1 item 8)")
         self.params = ChainParams(mode=mode, enhancer=enhancer, roll=roll,
                                   stabilizer=stabilizer,
                                   azc=azc or AutoZoomCropParams(),
@@ -270,7 +347,10 @@ class ProcessingChain:
                                   output_format=output_format)
         check_supported(self.params)
         self.device = pick_device(mode.use_cuda)
+        self.pipelined = pipelined
         self.ransac_draws = ransac_draws
+        self._pending: Optional[_InFlight] = None
+        self._copy_stream: Optional[torch.cuda.Stream] = None
         self._state: Optional[ChainState] = None
         self._shape = None
         # Host mirrors of the device's warm-up counters: steady state reads
@@ -282,6 +362,15 @@ class ProcessingChain:
     def state(self) -> Optional[ChainState]:
         return self._state
 
+    def with_output_format(self, fmt: str) -> "ProcessingChain":
+        """A fresh chain with the same params and another delivered format
+        (the stream restarts: call before streaming)."""
+        p = self.params
+        return ProcessingChain(p.mode, p.enhancer, p.roll, p.stabilizer,
+                               azc=p.azc, pipelined=self.pipelined,
+                               fuse_roll=p.fuse_roll, output_format=fmt,
+                               ransac_draws=self.ransac_draws)
+
     def load_state(self, state: ChainState, frames_in: int,
                    emitted: int) -> None:
         """Resume a stream from a ChainState and its host counters."""
@@ -289,9 +378,9 @@ class ProcessingChain:
         self._shape = tuple(state.stab.frame_ring.shape[1:3])
         self._frames_in, self._emitted = frames_in, emitted
 
-    def process_device(self, frame) -> Optional[torch.Tensor]:
-        """One step per frame; the processed frame as a device tensor (None
-        during the stabilizer warm-up)."""
+    def _step(self, frame) -> Optional[torch.Tensor]:
+        """One chain step; the delivered frame on the device, or None
+        during the stabilizer warm-up."""
         frame = as_device_frame(frame, self.device)
         h, w = frame.shape[:2]
         if self._state is None:
@@ -315,12 +404,52 @@ class ProcessingChain:
             self._emitted += 1
         return out
 
+    def _start_copy(self, out: torch.Tensor) -> _InFlight:
+        """Start the copy of ``out`` to pinned host memory on the side
+        stream, after the work that produced it."""
+        if not out.is_cuda:
+            return _InFlight(out)
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(out.device)
+        self._copy_stream.wait_stream(torch.cuda.current_stream(out.device))
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        with torch.cuda.stream(self._copy_stream):
+            host.copy_(out, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record()
+        # The allocator may reuse out's memory only after the copy.
+        out.record_stream(self._copy_stream)
+        return _InFlight(out, host, copied)
+
+    def process_device(self, frame) -> Optional[torch.Tensor]:
+        """One step per frame; the processed frame as a device tensor (None
+        during the stabilizer warm-up, and on the first ready call when
+        pipelined)."""
+        out = self._step(frame)
+        if out is None or not self.pipelined:
+            return out
+        prev, self._pending = self._pending, _InFlight(out)
+        return None if prev is None else prev.out
+
     def process(self, frame) -> Optional[np.ndarray]:
-        out = self.process_device(frame)
-        return None if out is None else out.cpu().numpy()
+        out = self._step(frame)
+        if out is None:
+            return None
+        if not self.pipelined:
+            return out.cpu().numpy()
+        prev, self._pending = self._pending, self._start_copy(out)
+        return None if prev is None else prev.numpy()
+
+    def drain(self) -> Optional[np.ndarray]:
+        """Pipelined mode: fetch the last in-flight frame."""
+        prev, self._pending = self._pending, None
+        return None if prev is None else prev.numpy()
 
     def flush(self) -> Optional[np.ndarray]:
-        """Drain one remaining look-ahead frame at end of stream."""
+        """Drain one remaining look-ahead frame at end of stream; when
+        pipelined, the in-flight frame comes first."""
+        if self._pending is not None:
+            return self.drain()
         p = self.params
         if (self._state is None or not p.mode.stabilizer_enabled
                 or self._frames_in - self._emitted <= 0):
@@ -334,8 +463,10 @@ class ProcessingChain:
         self._shape = None
         self._frames_in = 0
         self._emitted = 0
+        self._pending = None
 
 
 __all__ = ["ChainParams", "ChainState", "ProcessingChain",
-           "chain_flush_step_fn", "chain_gated_step_fn", "chain_init_step_fn",
+           "chain_analyze_step_fn", "chain_flush_step_fn",
+           "chain_gated_step_fn", "chain_init_step_fn",
            "chain_state_from_numpy", "chain_state_init", "chain_step_fn"]

@@ -4,20 +4,25 @@ Per frame: quarter-scale gray -> Canny -> Hough lines in the acceptance
 band around horizontal -> mean line angle -> exponential smoothing with a
 per-frame change clamp and decay toward zero. The angle is an explicit
 ``RollState`` (a 0-d device tensor), so nothing reads it back per frame.
+``roll_correct_step`` then rotates the frame by it through K1.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
+from video_stab_tpu_torch import pick_device
 from video_stab_tpu_torch.core.params import RollCorrectionParams
+from video_stab_tpu_torch.kernels.warp import warp_affine_u8
 from video_stab_tpu_torch.ops.canny import canny_edges
 from video_stab_tpu_torch.ops.color import bgr_to_gray
 from video_stab_tpu_torch.ops.hough import hough_lines
 from video_stab_tpu_torch.ops.resize import resize_bilinear
+from video_stab_tpu_torch.ops.warp import BORDER_REPLICATE, rotation_matrix_2d
 
 
 class RollState(NamedTuple):
@@ -66,3 +71,51 @@ def estimate_roll_angle(params: RollCorrectionParams, state: RollState,
         diff = torch.clamp(diff, -clamp, clamp)
     smoothed = torch.where(count > 0, prev + diff, prev * params.angle_decay)
     return RollState(smoothed_angle=smoothed.to(torch.float32))
+
+
+def roll_correct_step(params: RollCorrectionParams, state: RollState,
+                      frame_u8: torch.Tensor
+                      ) -> tuple[RollState, torch.Tensor]:
+    """Estimate the roll angle of a (H, W, 3) u8 frame and rotate the frame
+    about its centre by it (K1, BORDER_REPLICATE), u8 out.
+
+    K1 is exact for any angle; the JAX package's tiled warp is exact
+    inside its envelope (the acceptance band, at most 15 deg) and clamps
+    beyond it, so the two agree wherever the JAX warp is exact."""
+    state = estimate_roll_angle(params, state, bgr_to_gray(frame_u8.float()))
+    h, w = frame_u8.shape[:2]
+    rot = rotation_matrix_2d(w / 2.0, h / 2.0, state.smoothed_angle)
+    return state, warp_affine_u8(frame_u8, rot, border_mode=BORDER_REPLICATE)
+
+
+class RollCorrection:
+    """Streaming wrapper: ``auto_correct_roll(frame)`` mirrors the
+    reference's static API with the angle as per-instance state.
+
+    ``device``: where frames are processed (None: CUDA, raising without a
+    card)."""
+
+    def __init__(self, params: Optional[RollCorrectionParams] = None, *,
+                 device=None, **kw):
+        if params is None:
+            params = RollCorrectionParams(**kw)
+        elif kw:
+            raise ValueError("pass either params or keyword overrides")
+        self.params = params
+        self.device = pick_device(True) if device is None \
+            else torch.device(device)
+        self._state = roll_state_init(self.device)
+
+    @property
+    def smoothed_angle(self) -> float:
+        """The smoothed angle in degrees (a host read)."""
+        return float(self._state.smoothed_angle)
+
+    def auto_correct_roll(self, frame) -> np.ndarray:
+        t = torch.from_numpy(np.ascontiguousarray(frame, dtype=np.uint8))
+        self._state, out = roll_correct_step(self.params, self._state,
+                                             t.to(self.device))
+        return out.cpu().numpy()
+
+    def reset(self) -> None:
+        self._state = roll_state_init(self.device)

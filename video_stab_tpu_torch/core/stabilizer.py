@@ -15,8 +15,11 @@ Per frame:
             correction -> one projective warp (K2)
 
 The port covers the similarity and homography models with every streaming
-smoother, the drone high-frequency mode, black borders and GFTT. The other
-branches raise ``NotImplementedError`` naming their ROADMAP queue-1 item.
+smoother, the drone high-frequency mode, motion prediction (the global
+translation prior that seeds LK), every border type with ``border_size``
+(fade and crop-and-zoom included) and GFTT. Deep stabilization, the
+virtual canvas and the other feature detectors raise
+``NotImplementedError`` naming their ROADMAP queue-1 item.
 
 Steps are plain functions over an explicit ``StabilizerState`` of device
 tensors. The wrappers' steady state reads nothing back from the device:
@@ -28,6 +31,7 @@ The homography model adds the reads of its ``eigh`` and ``matrix_exp``
 
 from __future__ import annotations
 
+import functools
 import math
 from types import SimpleNamespace
 from typing import Callable, Optional
@@ -67,10 +71,10 @@ from video_stab_tpu_torch.motion.intent import (
     analyze_motion_intent,
     intent_correction_scale,
 )
-from video_stab_tpu_torch.ops.color import bgr_to_gray
+from video_stab_tpu_torch.ops.color import bgr_to_gray, saturate_u8
 from video_stab_tpu_torch.ops.features import good_features_to_track
 from video_stab_tpu_torch.ops.filters import clahe
-from video_stab_tpu_torch.ops.lk import lk_track
+from video_stab_tpu_torch.ops.lk import global_translation_prior, lk_track
 from video_stab_tpu_torch.ops.resize import resize_bilinear
 from video_stab_tpu_torch.ops.warp import (
     BORDER_CONSTANT,
@@ -102,16 +106,11 @@ def check_supported(params: StabilizerParams) -> None:
     if params.smoothing_method not in SMOOTHING_METHODS:
         todo.append(f"smoothing_method={params.smoothing_method} (unknown; "
                     "l1 is offline only)")
-    if params.border_pad > 0:
-        todo.append(f"border_size > 0 (border_type={params.border_type}, "
-                    f"crop_n_zoom, fade; queue 1 item 7)")
     if params.enable_virtual_canvas:
         todo.append("enable_virtual_canvas (queue 1 item 9)")
     if params.feature_detector != "gftt":
         todo.append(f"feature_detector={params.feature_detector} "
                     "(queue 1 item 9)")
-    if params.motion_prediction:
-        todo.append("motion_prediction (queue 1 item 4)")
     if todo:
         raise NotImplementedError(
             "not ported to video_stab_tpu_torch yet: " + "; ".join(todo))
@@ -205,6 +204,21 @@ def to_full_resolution(params: StabilizerParams, frame_shape,
                         rows[:, 2]], dim=1)
 
 
+def _lk_init_pts(params: StabilizerParams, state: StabilizerState,
+                 gray: torch.Tensor) -> Optional[torch.Tensor]:
+    """``motion_prediction``'s LK seed for the similarity model (the JAX
+    package's homography branch tracks without it): the previous points
+    shifted by the global translation between the two grays, measured at
+    analysis / 2**lk_levels and scaled back; None without the prior."""
+    if not params.motion_prediction or params.motion_model == "homography":
+        return None
+    sc = 2 ** params.lk_levels
+    hs, ws = params.analysis_height // sc, params.analysis_width // sc
+    g = global_translation_prior(resize_bilinear(state.prev_gray, hs, ws),
+                                 resize_bilinear(gray, hs, ws)) * sc
+    return state.prev_pts + g[None, :]
+
+
 def stabilizer_analyze_step_fn(params: StabilizerParams,
                                state: StabilizerState,
                                frame_u8: torch.Tensor, aux_roll=None,
@@ -234,7 +248,7 @@ def stabilizer_analyze_step_fn(params: StabilizerParams,
     curr_pts, status, _err = lk_track(
         state.prev_gray, gray, state.prev_pts, state.prev_mask,
         win=params.lk_window, max_level=params.lk_levels,
-        iters=params.lk_iters)
+        iters=params.lk_iters, init_pts=_lk_init_pts(params, state, gray))
     valid = state.prev_mask & status
 
     draws = None if ransac_draws is None else ransac_draws(valid.sum())
@@ -406,8 +420,9 @@ def stabilizer_emit_step_fn(params: StabilizerParams, state: StabilizerState
         row3 = torch.zeros((1, 3), dtype=torch.float32, device=dev)
         row3[0, 2] = 1.0
         m_use = (torch.cat([t_mat, row3]) @ torch.cat([r_mat, row3]))[:2]
-    out_u8 = warp_affine_u8(frame_u8, m_use, border_mode=BORDER_CONSTANT)
-
+    state, out_u8 = _warp_bordered(
+        params, state, frame_u8,
+        lambda img: warp_affine_u8(img, m_use, border_mode=BORDER_CONSTANT))
     new_state = state._replace(
         emit_idx=e + 1,
         envelope_exceeded=state.envelope_exceeded + exceeded.to(torch.int32))
@@ -432,12 +447,92 @@ def _emit_homography(params: StabilizerParams, state: StabilizerState,
         | (h_corr[0, 1].abs() > s_env) | (h_corr[1, 0].abs() > s_env)
         | (h_corr[2, 0].abs() > PROJ_BUDGET_DEFAULT)
         | (h_corr[2, 1].abs() > PROJ_BUDGET_DEFAULT))
-    out_u8 = warp_perspective_fast(frame_u8, h_corr,
-                                   border_mode=BORDER_CONSTANT)
+    state, out_u8 = _warp_bordered(
+        params, state, frame_u8,
+        lambda img: warp_perspective_fast(img, h_corr,
+                                          border_mode=BORDER_CONSTANT))
     new_state = state._replace(
         emit_idx=state.emit_idx + 1,
         envelope_exceeded=state.envelope_exceeded + exceeded.to(torch.int32))
     return new_state, out_u8
+
+
+# border_type -> numpy pad mode of the pad's index tables (jnp.pad's modes
+# in the JAX package); "black", "fade" and unknown types pad with zeros.
+_PAD_MODES = {"replicate": "edge", "reflect": "symmetric",
+              "reflect_101": "reflect", "reflect101": "reflect",
+              "wrap": "wrap"}
+
+
+@functools.lru_cache(maxsize=32)
+def _pad_index(n: int, b: int, mode: str, device: torch.device
+               ) -> torch.Tensor:
+    """Source index of each of the n + 2b padded positions (numpy's pad of
+    an arange), on ``device`` once."""
+    idx = np.pad(np.arange(n), (b, b), mode=mode)
+    return torch.from_numpy(idx.astype(np.int64)).to(device)
+
+
+def pad_frame(frame: torch.Tensor, b: int, border_type: str
+              ) -> torch.Tensor:
+    """copyMakeBorder of an (H, W, C) frame by b on every side with the
+    stabilizer's ``border_type``. The non-constant modes gather rows and
+    columns by index (numpy's ``symmetric``, OpenCV's BORDER_REFLECT, has
+    no ``F.pad`` mode)."""
+    mode = _PAD_MODES.get(border_type)
+    h, w = frame.shape[:2]
+    if mode is None:
+        out = frame.new_zeros((h + 2 * b, w + 2 * b) + tuple(frame.shape[2:]))
+        out[b:b + h, b:b + w] = frame
+        return out
+    rows = _pad_index(h, b, mode, frame.device)
+    cols = _pad_index(w, b, mode, frame.device)
+    return frame.index_select(0, rows).index_select(1, cols)
+
+
+def _warp_bordered(params: StabilizerParams, state: StabilizerState,
+                   frame_u8: torch.Tensor,
+                   warp: Callable[[torch.Tensor], torch.Tensor]
+                   ) -> tuple[StabilizerState, torch.Tensor]:
+    """The emit warp with ``border_size`` b (Stabilizer.cpp:914-1124), for
+    either model: ``warp`` is its u8 -> u8 warp (K1 or K2).
+
+    b == 0: the warp alone. crop_n_zoom: warp the unpadded frame, crop b
+    off every side and resize back to (h, w). Otherwise pad by b with
+    ``border_type`` and warp the padded frame: the output is (h + 2b,
+    w + 2b). The fade border blends the padded frame's border with the
+    history in float before the warp (quantized to u8 for it, as the JAX
+    package's warp quantizes its input), then updates the history at rate
+    0.1 in the border from the warped frame."""
+    b = params.border_pad
+    if b == 0:
+        return state, warp(frame_u8)
+    h, w = frame_u8.shape[:2]
+    if params.crop_n_zoom:
+        cropped = warp(frame_u8)[b:h - b, b:w - b]
+        return state, saturate_u8(resize_bilinear(cropped, h, w))
+    if params.border_type != "fade":
+        return state, warp(pad_frame(frame_u8, b, params.border_type))
+    dev = frame_u8.device
+    padded = pad_frame(frame_u8.float(), b, "black")
+    inside = torch.zeros(padded.shape[:2], dtype=torch.bool, device=dev)
+    inside[b:b + h, b:b + w] = True
+    border = ~inside[:, :, None]
+    count = state.fade_count
+    history = torch.where(count == 0, padded, state.fade_history)
+    # A device divisor keeps the division true on CUDA (a CPU scalar one
+    # becomes a multiply by its reciprocal there).
+    duration = torch.full((), float(params.fade_duration), device=dev)
+    alpha = torch.where(count < params.fade_duration,
+                        params.fade_alpha * count.to(torch.float32)
+                        / duration,
+                        torch.full((), params.fade_alpha, device=dev))
+    blended = alpha * history + (1.0 - alpha) * padded
+    out = warp(saturate_u8(torch.where(border, blended, padded)))
+    warped = out.float()
+    fade_history = torch.where(border, 0.9 * history + 0.1 * warped, warped)
+    return state._replace(fade_history=fade_history,
+                          fade_count=count + 1), out
 
 
 def stabilizer_emit_gated_fn(params: StabilizerParams, state: StabilizerState
@@ -451,7 +546,7 @@ def stabilizer_emit_gated_fn(params: StabilizerParams, state: StabilizerState
     held = {name: torch.where(ready, getattr(new_state, name),
                               getattr(state, name))
             for name in ("emit_idx", "kalman_x", "kalman_p", "butter_state",
-                         "envelope_exceeded")}
+                         "fade_history", "fade_count", "envelope_exceeded")}
     new_state = new_state._replace(**held)
     return new_state, out, ready
 

@@ -46,7 +46,8 @@ class StabilizerState(NamedTuple):
     kalman_p: torch.Tensor         # (2, 2, C) f32
     butter_state: torch.Tensor     # (4, C) f32
     hf: HFState                    # drone high-frequency chain state
-    fade_history: torch.Tensor     # (1, 1, 3) f32 (fade border not ported)
+    fade_history: torch.Tensor     # (H + 2b, W + 2b, 3) f32 with the fade
+                                   # border, else (1, 1, 3)
     fade_count: torch.Tensor       # int32
     canvas: torch.Tensor           # (1, 1, 3) f32 (virtual canvas not ported)
     canvas_weight: torch.Tensor    # (1, 1) f32
@@ -76,6 +77,11 @@ def stabilizer_state_init(params, height: int, width: int,
     n = params.max_corners
     q = params.effective_radius + 1
     c = motion_channels(params)
+    b = params.border_pad
+    if params.border_type == "fade" and b > 0 and not params.crop_n_zoom:
+        fade_shape = (height + 2 * b, width + 2 * b, 3)
+    else:
+        fade_shape = (1, 1, 3)
 
     def zeros(*shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -98,7 +104,7 @@ def stabilizer_state_init(params, height: int, width: int,
         kalman_p=zeros(2, 2, c),
         butter_state=zeros(4, c),
         hf=hf_init(device),
-        fade_history=zeros(1, 1, 3),
+        fade_history=zeros(*fade_shape),
         fade_count=i32(),
         canvas=zeros(1, 1, 3),
         canvas_weight=zeros(1, 1),
@@ -140,8 +146,9 @@ def state_from_numpy(np_state: Any, device: torch.device) -> StabilizerState:
     seeds a fresh generator from its words; its draws are not JAX's, so a
     caller continuing a stream with the JAX package's estimates injects
     JAX's draws (from the same key chain). ``hf`` (a tuple or a dict of
-    the HFState fields), ``kalman_x`` / ``kalman_p`` / ``butter_state`` are
-    carried; the fade and canvas buffers are not (not ported)."""
+    the HFState fields), ``kalman_x`` / ``kalman_p`` / ``butter_state`` and
+    the fade border's ``fade_history`` / ``fade_count`` are carried; the
+    canvas buffers are not (not ported)."""
     device = torch.device(device)
     fields = {}
     for name in StabilizerState._fields:
@@ -160,9 +167,8 @@ def state_from_numpy(np_state: Any, device: torch.device) -> StabilizerState:
                 gen.set_state(torch.from_numpy(
                     np.array(saved, dtype=np.uint8)))
             fields[name] = gen
-        elif name in ("fade_history", "canvas", "canvas_weight"):
-            shape = {"fade_history": (1, 1, 3), "canvas": (1, 1, 3),
-                     "canvas_weight": (1, 1)}[name]
+        elif name in ("canvas", "canvas_weight"):
+            shape = {"canvas": (1, 1, 3), "canvas_weight": (1, 1)}[name]
             fields[name] = torch.zeros(shape, dtype=torch.float32,
                                        device=device)
         else:

@@ -42,6 +42,10 @@ _SIGNATURES = {
     # gamma, stream
     "vs_enhance_u8": (_P, _P, _P, ctypes.c_longlong, _P, _I, _F, _F, _I, _F,
                       _P),
+    # src, dst, n_pix, wb, do_cb, contrast, brightness, stream
+    "vs_enhance_head": (_P, _P, ctypes.c_longlong, _P, _I, _F, _F, _P),
+    # src, dst, gray, n_pix, do_gamma, gamma, stream
+    "vs_enhance_tail": (_P, _P, _P, ctypes.c_longlong, _I, _F, _P),
     # x, n, c, offset, window, pad, median, centered, r, blocks, threads,
     # tile_rows, smem_bytes, out, stream
     "vs_box_window": (_P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -1,6 +1,6 @@
-"""Separable filtering (Sobel and Scharr derivatives) and CLAHE.
+"""Separable filtering, morphology, CLAHE and the enhancer's filters.
 
-Counterpart of the ported part of ``video_stab_tpu/ops/filters.py``. The
+Counterpart of ``video_stab_tpu/ops/filters.py``. The
 JAX package applies each 1-D filter as a dense banded (n, n) matmul, a
 layout choice for the TPU's matrix unit; here each is a 1-D correlation
 over a reflect-101 padded copy (``F.pad(mode="reflect")`` is reflect-101),
@@ -13,8 +13,11 @@ and plain version agree bit for bit.
 
 from __future__ import annotations
 
-from typing import Sequence
+import functools
+import math
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -139,3 +142,143 @@ def clahe(img: torch.Tensor, clip_limit: float = 2.0, tile_grid: int = 8
     out = ((look(y0, x0) * (1 - fx) + look(y0, x1) * fx) * (1 - fy)
            + (look(y1, x0) * (1 - fx) + look(y1, x1) * fx) * fy)
     return out[:h, :w].to(img.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Blurs, morphology, threshold and the enhancer's sharpen / denoise.
+# ---------------------------------------------------------------------------
+
+def _spatial_dims(img: torch.Tensor) -> tuple[int, int]:
+    """The (H, W) dims of (..., H, W) or of (..., H, W, C) with C <= 4 —
+    the JAX package's ``sep_filter2d`` rule for a trailing channel axis."""
+    if img.dim() >= 3 and img.shape[-1] in (1, 2, 3, 4):
+        return img.dim() - 3, img.dim() - 2
+    return img.dim() - 2, img.dim() - 1
+
+
+def sep_filter_image(img: torch.Tensor, kh: Sequence[float],
+                     kw: Sequence[float]) -> torch.Tensor:
+    """``sep_filter2d`` over an image's spatial dims, channels last when the
+    last dim is <= 4 (the JAX package's ``sep_filter2d`` on such images)."""
+    dh, dw = _spatial_dims(img)
+    return correlate_1d(correlate_1d(img, kh, dh), kw, dw)
+
+
+@functools.lru_cache(maxsize=64)
+def gaussian_kernel_1d(sigma: float, ksize: Optional[int] = None
+                       ) -> tuple[float, ...]:
+    """cv::getGaussianKernel; with no ksize, GaussianBlur(Size(0, 0), sigma)
+    on float input: ksize = round(sigma * 8 + 1) | 1."""
+    if ksize is None or ksize <= 0:
+        ksize = int(round(sigma * 4.0 * 2.0 + 1.0))
+    if ksize % 2 == 0:
+        ksize += 1
+    xs = np.arange(ksize, dtype=np.float64) - ksize // 2
+    k = np.exp(-(xs * xs) / (2.0 * sigma * sigma))
+    k /= k.sum()
+    return tuple(float(v) for v in k)
+
+
+def gaussian_blur(img: torch.Tensor, sigma: float,
+                  ksize: Optional[int] = None) -> torch.Tensor:
+    k = gaussian_kernel_1d(sigma, ksize)
+    return sep_filter_image(img, k, k)
+
+
+def box_blur(img: torch.Tensor, ksize: int) -> torch.Tensor:
+    k = (1.0 / ksize,) * ksize
+    return sep_filter_image(img, k, k)
+
+
+@functools.lru_cache(maxsize=32)
+def _ellipse_offsets(ksize: int) -> tuple[tuple[int, int], ...]:
+    """Offsets of cv::getStructuringElement(MORPH_ELLIPSE, (k, k))."""
+    r = ksize // 2
+    inv_r2 = 1.0 / (r * r) if r > 0 else 0.0
+    offs = []
+    for dy in range(-r, r + 1):
+        dx_max = 0 if r == 0 else int(round(
+            r * math.sqrt(max(0.0, 1.0 - dy * dy * inv_r2))))
+        if abs(dy) == r:
+            dx_max = 0
+        offs.extend((dy, dx) for dx in range(-dx_max, dx_max + 1))
+    return tuple(offs)
+
+
+def _shift2d(img: torch.Tensor, dy: int, dx: int, fill: float
+             ) -> torch.Tensor:
+    """out[y, x] = img[y + dy, x + dx], ``fill`` where that is outside."""
+    out = torch.roll(img, (-dy, -dx), dims=(0, 1))
+    h, w = img.shape[:2]
+    ys = torch.arange(h, device=img.device)[:, None]
+    xs = torch.arange(w, device=img.device)[None, :]
+    valid = (ys + dy >= 0) & (ys + dy < h) & (xs + dx >= 0) & (xs + dx < w)
+    return torch.where(valid, out, torch.full_like(out, fill))
+
+
+def dilate(img: torch.Tensor, ksize: int = 5) -> torch.Tensor:
+    """Grayscale dilation with an elliptical kernel; outside is -inf."""
+    out = img
+    for dy, dx in _ellipse_offsets(ksize):
+        if (dy, dx) != (0, 0):
+            out = torch.maximum(out, _shift2d(img, dy, dx, -math.inf))
+    return out
+
+
+def erode(img: torch.Tensor, ksize: int = 5) -> torch.Tensor:
+    """Grayscale erosion with an elliptical kernel; outside is +inf."""
+    out = img
+    for dy, dx in _ellipse_offsets(ksize):
+        if (dy, dx) != (0, 0):
+            out = torch.minimum(out, _shift2d(img, dy, dx, math.inf))
+    return out
+
+
+def morph_close(img: torch.Tensor, ksize: int = 5) -> torch.Tensor:
+    """MORPH_CLOSE = dilate then erode."""
+    return erode(dilate(img, ksize), ksize)
+
+
+def threshold_binary(img: torch.Tensor, thresh: float, maxval: float = 255.0,
+                     inverse: bool = False) -> torch.Tensor:
+    """cv::threshold THRESH_BINARY / THRESH_BINARY_INV."""
+    mask = img > thresh
+    if inverse:
+        mask = ~mask
+    return torch.where(mask, torch.full_like(img, maxval),
+                       torch.zeros_like(img))
+
+
+def unsharp_mask(img: torch.Tensor, sharpness: float, blur_sigma: float
+                 ) -> torch.Tensor:
+    """addWeighted(img, 1 + s, gaussian(img, sigma), -s, 0)."""
+    blurred = gaussian_blur(img, blur_sigma)
+    return img * (1.0 + sharpness) - blurred * sharpness
+
+
+def bilateral_denoise(img: torch.Tensor, strength: float, radius: int = 3,
+                      sigma_space: float = 2.0) -> torch.Tensor:
+    """The JAX package's edge-preserving stand-in for
+    cv::fastNlMeansDenoisingColored: a bilateral filter as (2r + 1)^2
+    shifted passes, the range weight from the channel mean, the range sigma
+    2.5 x ``strength``. Shifts wrap around the frame (``torch.roll``, as
+    ``jnp.roll``), not reflect. Each pass is ~8 small launches, ~400 at the
+    default radius."""
+    if strength <= 0:
+        return img
+    sigma_color = 2.5 * strength
+    h2 = 2.0 * sigma_color * sigma_color
+    s2 = 2.0 * sigma_space * sigma_space
+    has_c = img.dim() == 3
+    acc = torch.zeros_like(img)
+    wacc = torch.zeros(img.shape[:2], dtype=img.dtype, device=img.device)
+    ref = img.mean(dim=-1) if has_c else img
+    for dy in range(-radius, radius + 1):
+        for dx in range(-radius, radius + 1):
+            shifted = torch.roll(img, (-dy, -dx), dims=(0, 1))
+            diff = torch.roll(ref, (-dy, -dx), dims=(0, 1)) - ref
+            w = torch.exp(-(diff * diff) / h2 - (dy * dy + dx * dx) / s2)
+            acc = acc + shifted * (w[..., None] if has_c else w)
+            wacc = wacc + w
+    wacc = torch.where(wacc > 0, wacc, torch.ones_like(wacc))
+    return acc / (wacc[..., None] if has_c else wacc)

@@ -27,8 +27,8 @@ JAX leaves a round's loop early once every point has converged; the plain
 version runs every round's full step budget with converged points frozen,
 and K6 stops each point once it has converged. Both give the same output
 without reading the device's convergence flag on the host.
-``motion_prediction``'s initial guess (``init_pts``) is accepted; the prior
-that produces it is not ported yet.
+``motion_prediction``'s initial guess (``init_pts``) comes from
+``global_translation_prior`` below.
 """
 
 from __future__ import annotations
@@ -82,3 +82,41 @@ def lk_track(prev_gray: torch.Tensor, curr_gray: torch.Tensor,
     prev_planes, curr_planes = lk_planes(prev_gray, curr_gray, max_level)
     return lk_levels(prev_planes, curr_planes, prev_pts, pts_mask, init_pts,
                      win, iters, eps, min_eig_thresh)
+
+
+def global_translation_prior(prev_small: torch.Tensor,
+                             curr_small: torch.Tensor,
+                             search: int = 24) -> torch.Tensor:
+    """Coarse global translation (dx, dy) between two small gray frames by
+    zero-mean centre-patch correlation (``video_stab_tpu/ops/lk.py``'s
+    prior, which seeds LK under ``motion_prediction``).
+
+    The JAX package correlates with a channelized convolution; here every
+    search offset's window is one row of an unfolded (n * n, patch^2)
+    matrix, multiplied by the patch in full float32 (a float32 convolution
+    would go to cuDNN's TF32 on the card, and TF32 can move the argmax).
+    The first maximum wins, as in ``jnp.argmax``. Confidence-gated: when
+    the peak's z-score over the correlation surface (population std) is
+    not above 4, the prior is 0. All on the device: nothing is read
+    back."""
+    h, w = prev_small.shape
+    dev = prev_small.device
+    patch = min(64, ((min(h, w) // 2) // 8) * 8)
+    search = min(search, (h - patch) // 2 - 1, (w - patch) // 2 - 1)
+    if search < 4 or patch < 16:
+        return torch.zeros(2, dtype=torch.float32, device=dev)
+    cy, cx = (h - patch) // 2, (w - patch) // 2
+    p = prev_small[cy:cy + patch, cx:cx + patch]
+    p = p - p.mean()
+    region = curr_small[cy - search:cy + patch + search,
+                        cx - search:cx + patch + search]
+    region = region - region.mean()
+    n = 2 * search + 1
+    windows = region.unfold(0, patch, 1).unfold(1, patch, 1)  # (n, n, p, p)
+    corr = torch.matmul(windows.reshape(n * n, patch * patch),
+                        p.reshape(patch * patch))               # (n * n,)
+    idx = torch.argmax(corr)
+    z = (corr.max() - corr.mean()) / torch.clamp(corr.std(correction=0),
+                                                 min=1e-6)
+    shift = torch.stack([idx % n, idx // n]).to(torch.float32) - search
+    return torch.where(z > 4.0, shift, torch.zeros_like(shift))
