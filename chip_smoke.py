@@ -41,7 +41,11 @@ Phases (any failure is an uncaught exception and a nonzero exit):
    per-step floor in cycles, plus the templates, at the SM clock
    ``nvidia-smi`` reads while K6 runs) with ``floor_share``. K4's head
    (u8 -> f32) and tail (f32 -> u8 + gray) modes are checked and timed the
-   same way at 1080x1920x3.
+   same way at 1080x1920x3. The legacy stabilizer's shapes are held and
+   timed the same way: K6 over 4 levels of a real 1080p pair's
+   full-resolution gray (200 GFTT corners at min_distance 30, win 21, 30
+   iterations, eps 0.01) and K3 at 1080x1920 (``legacy_shape`` in their
+   rows).
 4. The paths, each with the kernels' launch counters zeroed just before it
    and read just after (each kernel of the path must be > 0):
    a. ``ProcessingChain`` with exactly the ``__graft_entry__.entry()``
@@ -68,7 +72,16 @@ Phases (any failure is an uncaught exception and a nonzero exit):
       at 1080p: ms/frame over 16 steady-state frames, the host reads of 8
       more attributed to the GFTT NMS and ``interior_rect``, and K6's
       ``steps=`` on those frames with the motion prior and without it (the
-      ``{"configs": ...}`` line).
+      ``{"configs": ...}`` line);
+   f. the stabilizer's variants at 1080p, 56 frames each: the streaming
+      ``Stabilizer`` with ``enable_virtual_canvas`` (the defaults: adaptive
+      scale, a 2160x3840 canvas), with the FAST, ORB and BRISK detectors,
+      with ``deep_stabilization`` (the bundled weights), and
+      ``LegacyStabilizer()`` at its defaults: ms/frame over 16
+      steady-state frames, the host reads of 8 more attributed to the GFTT
+      NMS and the legacy re-detect flag, K1 / K3 / K6 launches per frame
+      (> 0 where the path runs the kernel) and the peak device memory of
+      each run (the ``{"variants": ...}`` line).
 5. Steady-state ms/frame of the chain, the bare ``Stabilizer`` and the
    homography ``Stabilizer`` at 1080p (CUDA events); offline frames/s of
    both models over 240 frames at 1080p with the analysis, smoothing and
@@ -84,7 +97,8 @@ Phases (any failure is an uncaught exception and a nonzero exit):
    ``stabilize_clip`` of both models, and one streaming and one offline
    run of each new smoother (and the drone mode), all fed the same RANSAC
    draws. Phase 5b also runs the drone config and the wide-band run on
-   the card against the CPU.
+   the card against the CPU, and each variant of phase 4f (the legacy
+   stabilizer and the deep network at their own tolerances).
 
 Then one ``{"kernels": [...]}`` line: per kernel the phase-3 numbers, the
 launches of each phase-4 path and its launches per frame. Its ``ms``,
@@ -725,45 +739,57 @@ def lk_inputs(torch, dev):
 def check_lk(torch, dev) -> dict:
     """Phase 3, K6: the LK Newton ladder at the main path's shape (3
     levels, 200 points) against lk_levels_plain on the same planes."""
-    from video_stab_tpu_torch.kernels import lk as klk
-
     sp, prev, curr, pts, mask, planes = lk_inputs(torch, dev)
-    args = (pts, mask, None, sp.lk_window, sp.lk_iters)
     label = (f"lk_track {prev.shape[0]}x{prev.shape[1]} "
              f"{sp.lk_levels + 1} levels {int(mask.sum())} points")
+    k6 = lk_case(torch, label, planes, pts, mask, sp.lk_window, sp.lk_iters,
+                 (1e-6, 0.03))
+    k6.update(library="none: no PyTorch call computes LK",
+              lk_track_launches=lk_track_launches(torch, prev, curr, pts,
+                                                  mask))
+    return {"lk_track": k6}
+
+
+def lk_case(torch, label, planes, pts, mask, win, iters, eps_list) -> dict:
+    """K6 against lk_levels_plain on the same planes at each eps of
+    ``eps_list`` (the agreement and the ``steps=`` report), then timed, its
+    bound and its latency floor at the last eps."""
+    from video_stab_tpu_torch.kernels import lk as klk
+
+    args = (pts, mask, None, win, iters)
     rows = {}
     steps = {}
-    levels = sp.lk_levels + 1
-    # The step budget: lk_iters rounded up to whole rounds at each level
-    # (4 rounds at the top level, 2 below).
-    budget = (4 * -(-sp.lk_iters // 4)
-              + (levels - 1) * 2 * -(-sp.lk_iters // 2))
-    for eps in (1e-6, 0.03):
+    levels = len(planes[0])
+    eps = eps_list[-1]
+    # The step budget: iters rounded up to whole rounds at each level (4
+    # rounds at the top level, 2 below).
+    budget = 4 * -(-iters // 4) + (levels - 1) * 2 * -(-iters // 2)
+    for e in eps_list:
         k_steps, p_steps = (torch.empty(pts.shape[0], dtype=torch.int32,
-                                        device=dev) for _ in range(2))
-        got = klk.lk_levels_cuda(*planes, *args, eps, 1e-4, steps=k_steps)
-        want = klk.lk_levels_plain(*planes, *args, eps, 1e-4, steps=p_steps)
+                                        device=pts.device) for _ in range(2))
+        got = klk.lk_levels_cuda(*planes, *args, e, 1e-4, steps=k_steps)
+        want = klk.lk_levels_plain(*planes, *args, e, 1e-4, steps=p_steps)
         torch.cuda.synchronize()
-        rows[eps] = lk_agreement(label, got, want, eps)
-        steps[eps] = lk_steps_report(f"{label} eps={eps}", k_steps, p_steps,
-                                     got, want, budget)
-    n, win2 = pts.shape[0], (sp.lk_window + 1) ** 2
-    npix = sp.lk_window ** 2
+        rows[e] = lk_agreement(label, got, want, e)
+        steps[e] = lk_steps_report(f"{label} eps={e}", k_steps, p_steps,
+                                   got, want, budget)
+    n, win2 = pts.shape[0], (win + 1) ** 2
+    npix = win ** 2
     # Bytes: per point and level the template's footprint in the three
     # prev planes and one search window's in curr; points, mask, outputs.
     nbytes = n * (levels * 4 * win2 * 4 + 8 + 1 + 8 + 1 + 4)
     # Operations: the templates and the Newton steps this run's points ran.
     flops = npix * (n * levels * LK_TEMPLATE_FLOPS
-                    + steps[0.03]["mean"] * n * LK_STEP_FLOPS)
+                    + steps[eps]["mean"] * n * LK_STEP_FLOPS)
     k6 = timing(torch, f"K6 {label}",
-                lambda i: klk.lk_levels_cuda(*planes, *args, 0.03, 1e-4),
-                lambda i: klk.lk_levels_plain(*planes, *args, 0.03, 1e-4),
+                lambda i: klk.lk_levels_cuda(*planes, *args, eps, 1e-4),
+                lambda i: klk.lk_levels_plain(*planes, *args, eps, 1e-4),
                 ["lk_track_kernel"], nbytes, flops)
     # The second yardstick, one that can be approached: the slowest point's
     # dependent steps and the templates, at the clock the card runs K6 at.
     clock = sm_clock_mhz(
-        torch, lambda i: klk.lk_levels_cuda(*planes, *args, 0.03, 1e-4))
-    floor_cycles = (steps[0.03]["max"] * LK_STEP_FLOOR_CYCLES
+        torch, lambda i: klk.lk_levels_cuda(*planes, *args, eps, 1e-4))
+    floor_cycles = (steps[eps]["max"] * LK_STEP_FLOOR_CYCLES
                     + levels * LK_TEMPLATE_FLOOR_CYCLES)
     k6["sm_clock_mhz"] = clock
     k6["latency_floor_us"] = floor_cycles / clock
@@ -771,15 +797,57 @@ def check_lk(torch, dev) -> dict:
     k6["step_floor_cycles"] = LK_STEP_FLOOR_CYCLES
     k6["template_floor_cycles"] = LK_TEMPLATE_FLOOR_CYCLES
     print(f"K6 {label}: latency floor {k6['latency_floor_us']:.3f} us "
-          f"({steps[0.03]['max']} steps x {LK_STEP_FLOOR_CYCLES} cycles + "
+          f"({steps[eps]['max']} steps x {LK_STEP_FLOOR_CYCLES} cycles + "
           f"{levels} templates x {LK_TEMPLATE_FLOOR_CYCLES} cycles at "
           f"{clock:.0f} MHz), floor_share {k6['floor_share']:.3f}")
-    k6.update(rows[0.03], shape=label, eps_1e_6=rows[1e-6],
-              steps=steps[0.03], steps_eps_1e_6=steps[1e-6],
-              library="none: no PyTorch call computes LK",
-              lk_track_launches=lk_track_launches(torch, prev, curr, pts,
-                                                  mask))
-    return {"lk_track": k6}
+    k6.update(rows[eps], shape=label, steps=steps[eps])
+    if 1e-6 in rows and eps != 1e-6:
+        k6.update(eps_1e_6=rows[1e-6], steps_eps_1e_6=steps[1e-6])
+    return k6
+
+
+def check_legacy_shapes(torch, dev) -> dict:
+    """Phase 3, the legacy stabilizer's shapes: K6 over 4 levels of a real
+    1080p frame pair's full-resolution gray (200 GFTT corners at
+    min_distance 30, win 21, 30 iterations, eps 0.01), and K3 at 1080x1920,
+    each against its plain version at the 540x960 tolerance, timed, with
+    its bound (and K6's latency floor). -> {kernel name: row}"""
+    from video_stab_tpu_torch.core.params import LegacyStabilizerParams
+    from video_stab_tpu_torch.kernels import features as kfeat
+    from video_stab_tpu_torch.ops.color import bgr_to_gray
+    from video_stab_tpu_torch.ops.features import good_features_to_track
+    from video_stab_tpu_torch.ops.lk import lk_planes
+
+    lp = LegacyStabilizerParams()
+    pair = torch.from_numpy(make_frames(1080, 1920, 2, seed=5)).to(dev)
+    prev, curr = (bgr_to_gray(f.float()) for f in pair)
+    pts, mask = good_features_to_track(
+        prev, max_corners=lp.max_corners, quality_level=lp.quality_level,
+        min_distance=lp.min_distance, block_size=lp.block_size)
+    assert int(mask.sum()) == lp.max_corners, int(mask.sum())
+    planes = lk_planes(prev, curr, lp.lk_levels)
+    label = (f"lk_track legacy 1080x1920 {lp.lk_levels + 1} levels "
+             f"{int(mask.sum())} points win {lp.lk_window} iters "
+             f"{lp.lk_iters}")
+    k6 = lk_case(torch, label, planes, pts, mask, lp.lk_window, lp.lk_iters,
+                 (lp.lk_eps,))
+
+    resp, peak = kfeat.corner_response_cuda(prev)
+    p_resp, p_peak = kfeat.corner_response_plain(prev)
+    torch.cuda.synchronize()
+    err = float((resp - p_resp).abs().max())
+    n_peak = int((peak != p_peak).sum())
+    print(f"K3 corner_response 1080x1920: max|resp diff| {err:.3e}, "
+          f"{n_peak} peak-mask differences")
+    assert err <= 1e-5 and n_peak == 0
+    h, w = prev.shape
+    k3 = timing(torch, "K3 corner_response 1080x1920",
+                lambda i: kfeat.corner_response_cuda(prev),
+                lambda i: kfeat.corner_response_plain(prev),
+                ["corner_strip_kernel"], h * w * (4 + 4 + 1),
+                h * w * CORNER_FLOPS)
+    k3.update(max_abs_err=err, shape="corner_response 1080x1920")
+    return {"lk_track": k6, "corner_response": k3}
 
 
 def lk_track_launches(torch, prev, curr, pts, mask) -> dict:
@@ -1133,6 +1201,132 @@ def run_smoother_streams(torch, dev, pool) -> dict:
             (SMOOTHER_FRAMES - 1 if name == "drone" else 0)
         by_path[label] = launches
     return by_path
+
+
+# Phase 4f: the stabilizer's variants at 1080p with the default smoothing
+# radius (30: a 31-frame queue), 56 frames a run as in phase 4e.
+VARIANT_FRAMES, VARIANT_WARM, VARIANT_TIMED = 56, 32, 16
+VARIANTS = {
+    "canvas": dict(enable_virtual_canvas=True),
+    "fast": dict(feature_detector="fast"),
+    "orb": dict(feature_detector="orb"),
+    "brisk": dict(feature_detector="brisk"),
+    "deep": dict(deep_stabilization=True),
+    "legacy": None,                  # LegacyStabilizer() at its defaults
+}
+# The kernels each variant's path runs: FAST and BRISK detect without K3;
+# deep stabilization's network replaces LK (it still re-detects with GFTT).
+VARIANT_KERNELS = {
+    "canvas": ("warp_affine_u8", "corner_response", "lk_track"),
+    "fast": ("warp_affine_u8", "lk_track"),
+    "orb": ("warp_affine_u8", "corner_response", "lk_track"),
+    "brisk": ("warp_affine_u8", "lk_track"),
+    "deep": ("warp_affine_u8", "corner_response"),
+    "legacy": ("warp_affine_u8", "corner_response", "lk_track"),
+}
+
+
+def run_variants(torch, dev, pool) -> tuple[dict, dict]:
+    """Phase 4f: the streaming Stabilizer with the virtual canvas (the
+    defaults: adaptive scale), with the FAST, ORB and BRISK detectors and
+    with deep stabilization (the bundled weights), and LegacyStabilizer()
+    at 1080p, counters zeroed around each run: ms/frame over VARIANT_TIMED
+    steady-state frames (CUDA events), the host reads of CONFIG_READS more
+    (attributed to the GFTT NMS and the legacy re-detect flag, which their
+    libraries count), then ``flush()``; the canvas run's peak device
+    memory. -> (launches by run, numbers by run)"""
+    from video_stab_tpu_torch.core import legacy as tlegacy
+    from video_stab_tpu_torch.core.canvas import canvas_shape
+    from video_stab_tpu_torch.core.legacy import LegacyStabilizer
+    from video_stab_tpu_torch.core.params import ModeParams, StabilizerParams
+    from video_stab_tpu_torch.core.stabilizer import Stabilizer
+    from video_stab_tpu_torch.models.deepstab import DeepStabNet
+
+    by_run, numbers = {}, {}
+    for name, kw in VARIANTS.items():
+        label = f"variant {name}"
+        if kw is None:
+            stab = LegacyStabilizer(mode=ModeParams())
+        else:
+            stab = Stabilizer(StabilizerParams(**kw), mode=ModeParams())
+        radius = stab.params.effective_radius
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        zero_counts()
+        outs = [stab.stabilize_device(pool[i]) for i in range(VARIANT_WARM)]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        timed_to = VARIANT_WARM + VARIANT_TIMED
+        start.record()
+        outs += [stab.stabilize_device(pool[i])
+                 for i in range(VARIANT_WARM, timed_to)]
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / VARIANT_TIMED
+        flags0 = tlegacy.REDETECT_READS
+        by_line, n_syncs, nms = count_syncs(
+            torch, label, lambda f: outs.append(stab.stabilize_device(f)),
+            pool[timed_to:VARIANT_FRAMES])
+        flags = tlegacy.REDETECT_READS - flags0
+        flushed = []
+        while (f := stab.flush()) is not None:
+            flushed.append(f)
+        torch.cuda.synchronize()
+        peak_mb = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        launches = read_counts()
+        n_in = VARIANT_FRAMES
+        per_frame = {k: launches[k] / n_in for k in
+                     ("warp_affine_u8", "corner_response", "lk_track")}
+        print(f"{label} 1080p: {ms:.3f} ms/frame over {VARIANT_TIMED} "
+              f"steady-state frames (CUDA events); host reads over "
+              f"{CONFIG_READS} frames: {n_syncs} ({nms} GFTT NMS, {flags} "
+              f"legacy re-detect flag); K1 / K3 / K6 launches per frame "
+              f"{per_frame}; peak device memory above the start "
+              f"{peak_mb:.1f} MiB")
+        assert all(launches[k] > 0 for k in VARIANT_KERNELS[name]), \
+            (label, launches)
+        # Every read of the package is the GFTT NMS's or the legacy
+        # re-detect flag's; the canvas, the detectors and the network read
+        # nothing back.
+        by_file = collections.Counter()
+        for where, n in by_line.items():
+            by_file[where.split(":")[0]] += n
+        assert by_file["ops/features.py"] == nms, (label, by_line, nms)
+        assert by_file["core/legacy.py"] == flags, (label, by_line, flags)
+        assert n_syncs == nms + flags, (label, by_line)
+        assert flags == (CONFIG_READS if kw is None else 0), (label, flags)
+        # The legacy stabilizer passes its first frame through and starts
+        # its queue with the second: the same counts.
+        outs = [o for o in outs if o is not None]
+        assert len(outs) == VARIANT_FRAMES - radius + 1, (label, len(outs))
+        assert len(flushed) == radius - 1, (label, len(flushed))
+        for o in outs:
+            assert tuple(o.shape) == tuple(pool.shape[1:]) and \
+                o.dtype == torch.uint8, (label, o.shape)
+        std = float(outs[-1].float().std())
+        st = stab._state
+        extra = {}
+        if name == "canvas":
+            extra = {"canvas_shape": list(st.canvas.shape),
+                     "canvas_scale": float(st.canvas_scale)}
+            assert tuple(st.canvas.shape[:2]) == canvas_shape(
+                stab.params, *pool.shape[1:3]), st.canvas.shape
+            assert float(st.canvas_scale) >= stab.params.min_canvas_scale
+        if name == "deep":
+            assert isinstance(st.deepstab, DeepStabNet)
+        path = st.path_ring[:min(int(st.n_path), st.path_ring.shape[0])]
+        assert bool(torch.isfinite(path).all()), label
+        print(f"{label}: {len(outs)} frames emitted in stream, "
+              f"{len(flushed)} by flush(); last frame std {std:.3f} {extra}")
+        assert std > 5.0
+        by_run[label] = launches
+        numbers[label] = dict(ms_per_frame=ms, host_reads=n_syncs,
+                              nms_reads=nms, redetect_flag_reads=flags,
+                              reads_frames=CONFIG_READS,
+                              launches_per_frame=per_frame,
+                              peak_memory_mib=peak_mb, **extra)
+    return by_run, numbers
 
 
 # 56 frames a run: the rtsp_serving and default configs queue 30 frames
@@ -1767,6 +1961,7 @@ def small_reference(torch, dev) -> None:
     small_reference_homography(torch, frames, sp)
     small_reference_offline(torch, frames, sp)
     small_reference_smoothers(torch, frames, sp)
+    small_reference_variants(torch, frames, sp)
 
 
 def injected_draws(torch, n_steps: int, k: int, width: int, seed: int):
@@ -1882,6 +2077,68 @@ def small_reference_smoothers(torch, frames, sp) -> None:
                       outs["cuda"], outs["cpu"])
 
 
+def small_reference_variants(torch, frames, sp) -> None:
+    """Phase 5b, the variants of phase 4f on the card against the CPU on a
+    small clip: the virtual canvas and the FAST, ORB and BRISK detectors fed
+    the same RANSAC draws (within 1 on >= 99.5 % of pixels); deep
+    stabilization, which draws nothing, in the bfloat16 default (the
+    convolutions' bfloat16 sums round apart on cuDNN and on the CPU: the
+    transforms within 2e-2, >= 98 % of pixels within 1, the bound of
+    tests/test_torch_deepstab.py); the legacy stabilizer (the same
+    re-detect decisions, transforms within 1e-2 px / 1e-4 rad: K6 may
+    freeze a point one Newton step apart from the plain version, within
+    eps = 0.01 px, >= 99.5 % of pixels within 1)."""
+    import dataclasses
+
+    from video_stab_tpu_torch.core.legacy import LegacyStabilizer
+    from video_stab_tpu_torch.core.params import (LegacyStabilizerParams,
+                                                  ModeParams)
+    from video_stab_tpu_torch.core.stabilizer import Stabilizer
+
+    size = f"small input {frames.shape[1]}x{frames.shape[2]}"
+    lp = LegacyStabilizerParams(smoothing_radius=8, max_corners=120,
+                                min_distance=8.0, min_tracking_features=10,
+                                redetect_interval=6)
+    for name, kw in VARIANTS.items():
+        outs, trs, reds = {}, {}, {}
+        for use_cuda in (False, True):
+            mode = ModeParams(use_cuda=use_cuda)
+            if kw is None:
+                stab = LegacyStabilizer(lp, mode=mode)
+            else:
+                stab = Stabilizer(dataclasses.replace(sp, **kw), mode=mode,
+                                  ransac_draws=injected_draws(
+                                      torch, len(frames),
+                                      sp.ransac_hypotheses, 2, 9))
+            got, tr, red = [], [], []
+            for f in frames:
+                o = stab.stabilize(f)
+                if o is not None:
+                    got.append(o)
+                if stab.last_metrics:
+                    tr.append(stab.last_metrics["transform"].cpu().numpy())
+                    red.append(bool(stab.last_metrics.get("redetected",
+                                                          False)))
+            while (f := stab.flush()) is not None:
+                got.append(f)
+            outs[use_cuda], trs[use_cuda] = np.stack(got), np.array(tr)
+            reds[use_cuda] = red
+        d_tr = np.abs(trs[True] - trs[False])
+        print(f"{size}: CUDA vs CPU variant {name}: transforms max|diff| "
+              f"{d_tr[:, :2].max():.3e} px, {d_tr[:, 2].max():.3e} rad")
+        assert len(outs[False]) == len(frames), (name, len(outs[False]))
+        if name == "deep":
+            assert d_tr.max() <= 2e-2, d_tr.max()
+            compare_small(f"{size}: CUDA vs CPU variant {name}", outs[True],
+                          outs[False], share=0.98)
+            continue
+        if kw is None:
+            assert reds[True] == reds[False] and any(reds[False])
+            assert d_tr[:, :2].max() <= 1e-2 and d_tr[:, 2].max() <= 1e-4
+        compare_small(f"{size}: CUDA vs CPU variant {name}", outs[True],
+                      outs[False])
+
+
 def main() -> int:
     import torch
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -1906,6 +2163,8 @@ def main() -> int:
             print(f"  ptxas: {line.strip()}")
 
     kernels = check_kernels(torch, dev, launch_floor)
+    for name, row in check_legacy_shapes(torch, dev).items():
+        kernels[name]["legacy_shape"] = row
 
     pool = torch.from_numpy(make_frames(1080, 1920, N_FRAMES)).to(dev)
     config_paths, config_numbers = run_configs(torch, dev, pool)
@@ -1922,6 +2181,9 @@ def main() -> int:
                  for name in STREAM_SMOOTHERS}}
     by_path.update(config_paths)
     frames.update({label: CONFIG_FRAMES for label in config_paths})
+    variant_paths, variant_numbers = run_variants(torch, dev, pool)
+    by_path.update(variant_paths)
+    frames.update({label: VARIANT_FRAMES for label in variant_paths})
     steady_state(torch, dev, pool)
     routes = lk_routes(torch, dev, pool)
     del pool
@@ -1980,7 +2242,8 @@ def main() -> int:
                       "steps", "steps_eps_1e_6", "latency_floor_us",
                       "floor_share", "sm_clock_mhz", "step_floor_cycles",
                       "template_floor_cycles", "launch_floor_us", "launch",
-                      "launches_per_call", "values_differ"):
+                      "launches_per_call", "values_differ",
+                      "legacy_shape"):
             if extra in k:
                 row[extra] = k[extra]
         if name == "lk_track":
@@ -1998,6 +2261,7 @@ def main() -> int:
         assert row["launches"] > 0, row
     print(json.dumps({"lk_routes": routes}))
     print(json.dumps({"configs": config_numbers}))
+    print(json.dumps({"variants": variant_numbers}))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -853,3 +853,141 @@ def test_pipelined_chain_on_the_card(dev):
     for a, b in zip(got, want):
         assert a.shape == (144, 128)
         np.testing.assert_array_equal(a, b)
+
+
+# --- the remaining variants: legacy shapes, canvas, detectors, deep ----------
+
+def test_lk_kernel_matches_plain_at_the_legacy_shape(dev):
+    """K6 at the legacy stabilizer's shape (1080 x 1920, 4 levels, win 21,
+    30 iterations, eps 0.01, 200 GFTT corners at min_distance 30) against
+    lk_levels_plain, at the tolerance of the 540 x 960 case."""
+    from video_stab_tpu_torch.kernels import lk as klk
+    from video_stab_tpu_torch.ops.features import good_features_to_track
+    from video_stab_tpu_torch.ops.lk import lk_planes
+    prev, curr = _lk_pair(dev, 1080, 1920, 5, (4.6, -7.3))
+    pts, mask = good_features_to_track(prev, max_corners=200,
+                                       quality_level=0.01, min_distance=30.0)
+    assert int(mask.sum()) == 200
+    planes = lk_planes(prev, curr, 3)
+    before = klk.LAUNCHES
+    got = klk.lk_levels(*planes, pts, mask, None, 21, 30, 0.01, 1e-4)
+    assert klk.LAUNCHES == before + 1
+    want = klk.lk_levels_plain(*planes, pts, mask, None, 21, 30, 0.01, 1e-4)
+    torch.cuda.synchronize()
+    _check_lk(got, want, 0.01)
+
+
+def test_corner_kernel_at_1080p(dev):
+    """K3 at the legacy GFTT's full 1080 x 1920 against its plain version."""
+    from video_stab_tpu_torch.kernels import features as kfeat
+    gray = torch.from_numpy(np.round(_textured(1080, 1920, 7))).to(dev)
+    resp, peak = kfeat.corner_response(gray)
+    p_resp, p_peak = kfeat.corner_response_plain(gray)
+    assert float((resp - p_resp).abs().max()) <= 1e-5
+    assert torch.equal(peak, p_peak)
+
+
+CARD_VARIANTS = {
+    "canvas": {"enable_virtual_canvas": True},
+    "canvas fixed": {"enable_virtual_canvas": True,
+                     "adaptive_canvas_size": False},
+    "fast": {"feature_detector": "fast"},
+    "orb": {"feature_detector": "orb"},
+    "brisk": {"feature_detector": "brisk"},
+}
+
+
+@pytest.mark.parametrize("case", list(CARD_VARIANTS))
+def test_stabilizer_variants_match_cpu(dev, case):
+    """The virtual canvas and the FAST / ORB / BRISK detectors: the card
+    against the CPU on the same frames and RANSAC draws, u8 frames within 1
+    on >= 99.5 % of pixels; K3 runs on the card for GFTT and ORB, not for
+    FAST and BRISK."""
+    from video_stab_tpu_torch.core.params import ModeParams, StabilizerParams
+    from video_stab_tpu_torch.core.stabilizer import Stabilizer
+    from video_stab_tpu_torch.kernels import features as kfeat
+    from video_stab_tpu_torch.kernels import warp as kwarp
+    p = StabilizerParams(**{**SMALL_STREAM, **CARD_VARIANTS[case]})
+    frames = _jittered(20)
+    before = (kwarp.LAUNCHES, kfeat.LAUNCHES)
+    outs = [_stream(Stabilizer(p, mode=ModeParams(use_cuda=use_cuda),
+                               ransac_draws=_draws(len(frames),
+                                                   p.ransac_hypotheses, 2, 5)),
+                    frames)
+            for use_cuda in (False, True)]
+    assert kwarp.LAUNCHES > before[0]
+    assert (kfeat.LAUNCHES > before[1]) == (case not in ("fast", "brisk"))
+    assert len(outs[0]) == len(frames)
+    assert _within_one(outs[1], outs[0]) >= 0.995
+
+
+def test_legacy_stream_matches_cpu(dev):
+    """LegacyStabilizer on the card (K1, K3, K6) against the CPU: the same
+    re-detect decisions, transforms within 1e-2 px / 1e-4 rad (K6 may
+    freeze a point one Newton step apart from the plain version, within
+    eps = 0.01 px), u8 frames within 1 on >= 99.5 % of pixels."""
+    from video_stab_tpu_torch.core.legacy import LegacyStabilizer
+    from video_stab_tpu_torch.core.params import (LegacyStabilizerParams,
+                                                  ModeParams)
+    from video_stab_tpu_torch.kernels import lk as klk
+    p = LegacyStabilizerParams(smoothing_radius=8, max_corners=120,
+                               min_distance=8.0, min_tracking_features=10,
+                               redetect_interval=6)
+    frames = _jittered(24, seed=6)
+    runs = []
+    for use_cuda in (False, True):
+        before = klk.LAUNCHES
+        stab = LegacyStabilizer(p, mode=ModeParams(use_cuda=use_cuda))
+        outs, tr, red = [], [], []
+        for f in frames:
+            o = stab.stabilize(f)
+            if o is not None:
+                outs.append(o)
+            if stab.last_metrics:
+                tr.append(stab.last_metrics["transform"].cpu().numpy())
+                red.append(bool(stab.last_metrics["redetected"]))
+        while (o := stab.flush()) is not None:
+            outs.append(o)
+        assert (klk.LAUNCHES > before) == use_cuda
+        runs.append((np.stack(outs), np.array(tr), red))
+    (c_out, c_tr, c_red), (g_out, g_tr, g_red) = runs
+    assert g_red == c_red and any(c_red)
+    np.testing.assert_allclose(g_tr[:, :2], c_tr[:, :2], atol=1e-2, rtol=0)
+    np.testing.assert_allclose(g_tr[:, 2], c_tr[:, 2], atol=1e-4, rtol=0)
+    assert len(c_out) == len(frames)
+    assert _within_one(g_out, c_out) >= 0.995
+
+
+def test_deep_net_on_the_card_matches_cpu(dev):
+    """DeepStabNet on the card (cuDNN) against the CPU: within 1e-4 in the
+    float32 config, within the bfloat16 bound of tests/test_torch_deepstab.py
+    (2e-2) in the default."""
+    from video_stab_tpu_torch.models import deepstab as tdeep
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy((rng.random((2, 72, 128, 2)) * 255).astype(
+        np.float32))
+    for cfg, tol in ((tdeep.DeepStabConfig(dtype=torch.float32), 1e-4),
+                     (tdeep.DeepStabConfig(), 2e-2)):
+        net = tdeep.load_deepstab(tdeep.BUNDLED_WEIGHTS, cfg)
+        with torch.no_grad():
+            want = net(x)
+            got = net.to(dev)(x.to(dev)).cpu()
+        assert float((got - want).abs().max()) <= tol
+
+
+def test_deep_stream_matches_cpu(dev, monkeypatch):
+    """Deep stabilization in the float32 network config, the card against
+    the CPU: u8 frames within 1 on >= 99.5 % of pixels (no RANSAC draws)."""
+    from video_stab_tpu_torch.core import stabilizer as tstab
+    from video_stab_tpu_torch.core.params import ModeParams, StabilizerParams
+    from video_stab_tpu_torch.models import deepstab as tdeep
+    cfg = tdeep.DeepStabConfig(dtype=torch.float32)
+    monkeypatch.setattr(tstab, "resolve_deepstab_weights",
+                        lambda p, d: tdeep.load_deepstab(
+                            tdeep.BUNDLED_WEIGHTS, cfg).to(d))
+    p = StabilizerParams(**SMALL_STREAM, deep_stabilization=True)
+    frames = _jittered(20, seed=7)
+    outs = [_stream(tstab.Stabilizer(p, mode=ModeParams(use_cuda=use_cuda)),
+                    frames) for use_cuda in (False, True)]
+    assert len(outs[0]) == len(frames)
+    assert _within_one(outs[1], outs[0]) >= 0.995

@@ -18,7 +18,7 @@ from video_stab_tpu_torch.core import params as tparams  # noqa: E402
 
 REPO = os.path.join(os.path.dirname(__file__), os.pardir)
 COPIED = ("StabilizerParams", "EnhancerParams", "RollCorrectionParams",
-          "ModeParams", "AutoZoomCropParams")
+          "ModeParams", "AutoZoomCropParams", "LegacyStabilizerParams")
 
 
 @pytest.mark.parametrize("name", COPIED)
@@ -41,6 +41,14 @@ def test_stabilizer_properties_agree(kw):
     j, t = jparams.StabilizerParams(**kw), tparams.StabilizerParams(**kw)
     assert t.effective_radius == j.effective_radius
     assert t.border_pad == j.border_pad
+
+
+@pytest.mark.parametrize("radius", [1, 4, 5, 11, 30, 31, 99])
+def test_legacy_properties_agree(radius):
+    j = jparams.LegacyStabilizerParams(smoothing_radius=radius)
+    t = tparams.LegacyStabilizerParams(smoothing_radius=radius)
+    assert t.effective_radius == j.effective_radius
+    assert t.box_radius == j.box_radius
 
 
 @pytest.mark.parametrize("variant", [
@@ -92,10 +100,16 @@ def test_port_never_imports_jax():
         "import video_stab_tpu_torch.motion.filters\n"
         "import video_stab_tpu_torch.ops.filters\n"
         "import video_stab_tpu_torch.offline\n"
+        "import video_stab_tpu_torch.core.canvas\n"
+        "import video_stab_tpu_torch.core.legacy\n"
+        "import video_stab_tpu_torch.ops.fast\n"
+        "import video_stab_tpu_torch.models.deepstab\n"
+        "import video_stab_tpu_torch.models.flax_msgpack\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'jaxlib',\n"
         "                                            'video_stab_tpu.'))\n"
-        "             or m in ('video_stab_tpu', 'cv2'))\n"
+        "             or m in ('video_stab_tpu', 'cv2', 'flax', 'msgpack')\n"
+        "             or m.startswith(('flax.', 'msgpack.')))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     # -I: no PYTHONPATH or user site, so nothing but the port can pull
@@ -132,26 +146,20 @@ def test_use_cuda_without_a_device_raises(monkeypatch):
     {"motion_model": "homography", "border_size": 10},
     {"motion_model": "homography", "drone_high_freq_mode": True}])
 def test_unported_stabilizer_branches_raise(kw):
-    """Both motion models run with every streaming smoother, the drone
-    high-frequency mode and borders (those cases construct); with the
-    virtual canvas, another detector or deep stabilization the Stabilizer
-    still raises, naming the ROADMAP item."""
+    """No branch is left unported: both motion models with every streaming
+    smoother, the drone high-frequency mode, borders, the virtual canvas,
+    every detector and deep stabilization all construct."""
     from video_stab_tpu_torch.core.stabilizer import Stabilizer
     params = tparams.StabilizerParams(**kw)
     mode = tparams.ModeParams(use_cuda=False)
-    if set(kw) <= {"motion_model", "smoothing_method",
-                   "drone_high_freq_mode", "border_size"}:
-        assert Stabilizer(params, mode=mode).params is params
-        return
-    with pytest.raises(NotImplementedError, match="queue 1 item"):
-        Stabilizer(params, mode=mode)
+    assert Stabilizer(params, mode=mode).params is params
 
 
 @pytest.mark.parametrize("kw", [
     {"smoothing_method": "l1"}, {"smoothing_method": "median"},
-    {"feature_detector": "orb"}, {"motion_model": "affine"}])
+    {"feature_detector": "sift"}, {"motion_model": "affine"}])
 def test_unknown_or_unported_stabilizer_options_raise(kw):
-    """l1 is an offline smoother; ORB waits for queue 1 item 9."""
+    """l1 is an offline smoother; the other values are unknown."""
     from video_stab_tpu_torch.core.stabilizer import Stabilizer
     with pytest.raises(NotImplementedError):
         Stabilizer(tparams.StabilizerParams(**kw),
@@ -162,8 +170,9 @@ def test_unknown_or_unported_stabilizer_options_raise(kw):
                                   "clahe"])
 def test_unported_chain_variants_raise(what):
     """The chain variants and the enhancer stages that once raised are
-    ported: each constructs (the CLAHE enhancer runs); only the
-    stabilizer's unported branches still raise through the chain."""
+    ported: each constructs (the CLAHE enhancer runs), and so does each
+    with the BRISK detector; only an unknown stabilizer value raises
+    through the chain."""
     from video_stab_tpu_torch.core.chain import ProcessingChain
     from video_stab_tpu_torch.core.enhancer import enhance_frame
     mode = tparams.ModeParams(use_cuda=False, enhancer_enabled=True,
@@ -188,7 +197,29 @@ def test_unported_chain_variants_raise(what):
     assert ch.pipelined == (what == "pipelined")
     assert ch.params.roll_fusion_active == (what in ("i420", "pipelined",
                                                      "clahe"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    ProcessingChain(mode, enh, tparams.RollCorrectionParams(),
+                    tparams.StabilizerParams(feature_detector="brisk"), **kw)
+    with pytest.raises(NotImplementedError, match="unknown"):
         ProcessingChain(mode, enh, tparams.RollCorrectionParams(),
-                        tparams.StabilizerParams(feature_detector="brisk"),
+                        tparams.StabilizerParams(feature_detector="sift"),
                         **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    {"deep_stabilization": True}, {"enable_virtual_canvas": True},
+    {"enable_virtual_canvas": True, "adaptive_canvas_size": False},
+    {"feature_detector": "fast"}, {"feature_detector": "orb"},
+    {"feature_detector": "brisk"},
+    {"deep_stabilization": True, "enable_virtual_canvas": True,
+     "feature_detector": "orb", "drone_high_freq_mode": True}])
+def test_check_supported_raises_for_none_of_the_ported_branches(kw):
+    """The branches of ROADMAP queue 1 item 9 pass both ``check_supported``
+    functions (the stabilizer's and the chain's)."""
+    from video_stab_tpu_torch.core.stabilizer import check_supported
+    params = tparams.StabilizerParams(**kw)
+    check_supported(params)
+    mode = tparams.ModeParams(use_cuda=False, stabilizer_enabled=True)
+    tchain.check_supported(tchain.ChainParams(
+        mode=mode, enhancer=tparams.EnhancerParams(),
+        roll=tparams.RollCorrectionParams(), stabilizer=params,
+        azc=tparams.AutoZoomCropParams()))

@@ -11,11 +11,15 @@ wrappers (``core.stabilizer.Stabilizer``, ``core.chain.ProcessingChain``)
 pick that device once, from ``ModeParams.use_cuda`` (:func:`pick_device`).
 The hand-written CUDA kernels (``csrc/``: K1 to K5b, one for each Pallas
 kernel of the JAX package) run on CUDA tensors; a CPU tensor takes each
-kernel's plain PyTorch version (``kernels/``).
+kernel's plain PyTorch version (``kernels/``). The deep-stabilization
+network (``models/``) reads the JAX package's bundled flax checkpoint by
+path, with a msgpack reader of its own.
 
 Entry points: ``core.stabilizer.Stabilizer`` (streaming, similarity or
-homography model), ``core.chain.ProcessingChain`` (the fused serving
-chain) and ``offline.stabilize_clip`` (whole-clip stabilization).
+homography model, every detector, deep stabilization, the virtual
+canvas), ``core.legacy.LegacyStabilizer`` (the legacy deterministic
+stabilizer), ``core.chain.ProcessingChain`` (the fused serving chain) and
+``offline.stabilize_clip`` (whole-clip stabilization).
 
 Importing the package turns TF32 off for matmuls and cuDNN convolutions:
 the filters, resizes and LK's normal equations need full float32.

@@ -62,6 +62,7 @@ from video_stab_tpu_torch.core.state import (
     stabilizer_state_init,
 )
 from video_stab_tpu_torch.kernels.warp import warp_affine_u8
+from video_stab_tpu_torch.models.deepstab import resolve_deepstab_weights
 from video_stab_tpu_torch.ops.color import (
     bgr_to_gray,
     bgr_to_i420,
@@ -126,18 +127,21 @@ class ChainState(NamedTuple):
 
 
 def check_supported(params: ChainParams) -> None:
-    """Raise NotImplementedError for the stabilizer branches the port does
-    not have yet (deep stabilization, the virtual canvas, detectors other
-    than GFTT), when the chain runs the stabilizer."""
+    """Raise NotImplementedError for stabilizer values the port does not
+    know, when the chain runs the stabilizer."""
     if params.mode.stabilizer_enabled:
         check_stabilizer_supported(params.stabilizer)
 
 
 def chain_state_init(params: ChainParams, height: int, width: int,
                      device: torch.device) -> ChainState:
-    return ChainState(
-        roll=roll_state_init(device),
-        stab=stabilizer_state_init(params.stabilizer, height, width, device))
+    """The chain's state; with deep stabilization the network's weights are
+    resolved into it (``models.deepstab.resolve_deepstab_weights``)."""
+    stab = stabilizer_state_init(params.stabilizer, height, width, device)
+    if params.stabilizer.deep_stabilization:
+        stab = stab._replace(deepstab=resolve_deepstab_weights(
+            params.stabilizer, device))
+    return ChainState(roll=roll_state_init(device), stab=stab)
 
 
 def chain_state_from_numpy(roll_angle, stab_state, device: torch.device

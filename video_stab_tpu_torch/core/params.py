@@ -179,6 +179,50 @@ class StabilizerParams:
 
 
 @dataclasses.dataclass(frozen=True)
+class LegacyStabilizerParams:
+    """Parameters consumed by the legacy deterministic path
+    (src/Stabilizer_legacy.cpp). Shares the Stabilizer parameter names; only
+    the subset the legacy implementation reads, plus its hardcoded constants
+    (Stabilizer_legacy.cpp:28-32) exposed as parameters."""
+
+    logging: bool = False
+    smoothing_radius: int = 30
+    max_corners: int = 200
+    quality_level: float = 0.01
+    min_distance: float = 30.0
+    block_size: int = 3
+    border_type: str = "reflect_101"   # legacy default (Stabilizer_legacy.cpp:451)
+    border_size: int = 0
+    crop_n_zoom: bool = False
+
+    # Hardcoded constants in the reference, parameterized here:
+    shake_threshold_px: float = 3.0        # SHAKE_THRESHOLD_PX
+    rotation_shake_rad: float = 0.03       # ROTATION_SHAKE_RAD
+    shake_damping_factor: float = 0.15     # SHAKE_DAMPING_FACTOR
+    min_tracking_features: int = 30        # MIN_TRACKING_FEATURES
+    outlier_threshold: float = 15.0        # OUTLIER_THRESHOLD
+    feature_border_margin: int = 20        # detectInitialFeatures border (legacy:180)
+    redetect_interval: int = 30            # periodic re-detect (legacy:277)
+
+    lk_window: int = 21                    # legacy:222
+    lk_levels: int = 3
+    lk_iters: int = 30
+    lk_eps: float = 0.01
+    lk_err_threshold: float = 30.0         # err < 30 filter (legacy:229)
+
+    @property
+    def effective_radius(self) -> int:
+        """min(smoothing_radius, 30) — legacy look-ahead (legacy:126)."""
+        return min(self.smoothing_radius, 30)
+
+    @property
+    def box_radius(self) -> int:
+        """Box kernel half-width: kernel size clamp(smoothing_radius,5,30)/2
+        (legacy:61-62, 422)."""
+        return max(5, min(self.smoothing_radius, 30)) // 2
+
+
+@dataclasses.dataclass(frozen=True)
 class RollCorrectionParams:
     """Roll correction parameters (include/video/RollCorrection.h:16-38)."""
 

@@ -4,29 +4,30 @@
 Per frame:
   analyze:  gray + resize -> [drone mode: CLAHE after > 2 starved frames]
             -> sparse pyramidal LK -> RANSAC similarity (or homography,
-            conjugated to full resolution and mapped to sl(3)) -> [drone
+            conjugated to full resolution and mapped to sl(3)); with
+            ``deep_stabilization`` the network (``models/deepstab.py``) on
+            the [prev, curr] gray pair in place of LK and RANSAC -> [drone
             mode, similarity: the high-frequency chain] -> push transform
-            and path rings -> re-detect GFTT features every
-            ``redetect_interval``-th frame
+            and path rings -> re-detect features every
+            ``redetect_interval``-th frame (GFTT, FAST, ORB or BRISK)
   emit:     smooth the path at the emit cursor (box, gaussian, kalman or
             butterworth) -> similarity: motion-intent correction scaling ->
             rigid matrix (composed with the fused chain's roll rotation) ->
-            one warp of the queued frame (K1); homography: exp of the sl(3)
-            correction -> one projective warp (K2)
+            one warp of the queued frame (K1), or with
+            ``enable_virtual_canvas`` the canvas update and composite
+            (``core/canvas.py``); homography: exp of the sl(3) correction
+            -> one projective warp (K2)
 
-The port covers the similarity and homography models with every streaming
-smoother, the drone high-frequency mode, motion prediction (the global
-translation prior that seeds LK), every border type with ``border_size``
-(fade and crop-and-zoom included) and GFTT. Deep stabilization, the
-virtual canvas and the other feature detectors raise
-``NotImplementedError`` naming their ROADMAP queue-1 item.
+Every ``StabilizerParams`` the JAX package accepts runs here:
+``check_supported`` raises only for unknown values.
 
 Steps are plain functions over an explicit ``StabilizerState`` of device
 tensors. The wrappers' steady state reads nothing back from the device:
 readiness and the re-detect cadence come from host-side frame counters
 that mirror the device's, and every index into a ring is a device tensor.
 The homography model adds the reads of its ``eigh`` and ``matrix_exp``
-(``motion/homography.py``).
+(``motion/homography.py``), and every detector the convergence reads of
+its greedy selection (``ops/features.py``).
 """
 
 from __future__ import annotations
@@ -40,6 +41,8 @@ import numpy as np
 import torch
 
 from video_stab_tpu_torch import pick_device
+from video_stab_tpu_torch.core.canvas import (adaptive_canvas_scale,
+                                              virtual_canvas_apply)
 from video_stab_tpu_torch.core.params import ModeParams, StabilizerParams
 from video_stab_tpu_torch.core.state import (
     StabilizerState,
@@ -48,6 +51,8 @@ from video_stab_tpu_torch.core.state import (
     stabilizer_state_init,
 )
 from video_stab_tpu_torch.kernels.warp import warp_affine_u8
+from video_stab_tpu_torch.models.deepstab import (predict_transform,
+                                                  resolve_deepstab_weights)
 from video_stab_tpu_torch.motion.estimate import estimate_similarity_ransac
 from video_stab_tpu_torch.motion.filters import (
     adaptive_radius,
@@ -72,6 +77,8 @@ from video_stab_tpu_torch.motion.intent import (
     intent_correction_scale,
 )
 from video_stab_tpu_torch.ops.color import bgr_to_gray, saturate_u8
+from video_stab_tpu_torch.ops.fast import (brisk_corners, fast_corners,
+                                           orb_corners)
 from video_stab_tpu_torch.ops.features import good_features_to_track
 from video_stab_tpu_torch.ops.filters import clahe
 from video_stab_tpu_torch.ops.lk import global_translation_prior, lk_track
@@ -93,27 +100,25 @@ PROJ_BUDGET_DEFAULT = 5e-6
 RansacDraws = Optional[Callable[[torch.Tensor], torch.Tensor]]
 
 SMOOTHING_METHODS = ("box", "gaussian", "kalman", "butterworth")
+FEATURE_DETECTORS = ("gftt", "fast", "orb", "brisk")
+_ALT_DETECTORS = {"fast": fast_corners, "orb": orb_corners,
+                  "brisk": brisk_corners}
 
 
 def check_supported(params: StabilizerParams) -> None:
-    """Raise NotImplementedError for the branches this slice does not port,
-    naming the ROADMAP queue-1 item that ports them."""
+    """Raise NotImplementedError for values the stabilizer does not know
+    (every branch the JAX package runs is ported)."""
     todo = []
     if params.motion_model not in ("similarity", "homography"):
         todo.append(f"motion_model={params.motion_model} (unknown)")
-    if params.deep_stabilization:
-        todo.append("deep_stabilization (queue 1 item 9)")
     if params.smoothing_method not in SMOOTHING_METHODS:
         todo.append(f"smoothing_method={params.smoothing_method} (unknown; "
                     "l1 is offline only)")
-    if params.enable_virtual_canvas:
-        todo.append("enable_virtual_canvas (queue 1 item 9)")
-    if params.feature_detector != "gftt":
-        todo.append(f"feature_detector={params.feature_detector} "
-                    "(queue 1 item 9)")
+    if params.feature_detector not in FEATURE_DETECTORS:
+        todo.append(f"feature_detector={params.feature_detector} (unknown)")
     if todo:
         raise NotImplementedError(
-            "not ported to video_stab_tpu_torch yet: " + "; ".join(todo))
+            "not supported by video_stab_tpu_torch: " + "; ".join(todo))
 
 
 def _analysis_gray(params: StabilizerParams, frame_f32: torch.Tensor
@@ -127,8 +132,14 @@ def _analysis_gray(params: StabilizerParams, frame_f32: torch.Tensor
 def _detect_features(params: StabilizerParams, gray: torch.Tensor,
                      roi: Optional[torch.Tensor] = None,
                      redetect: bool = False):
-    """GFTT detection; re-detection uses the reference's fast parameters
-    (quality 0.02, min distance 15)."""
+    """Feature detection dispatch (GFTT | FAST | ORB | BRISK). GFTT's
+    re-detection uses the reference's fast parameters (quality 0.02, min
+    distance 15); the other detectors keep their own thresholds and ignore
+    ``roi`` and ``redetect``."""
+    alt = _ALT_DETECTORS.get(params.feature_detector)
+    if alt is not None:
+        return alt(gray, float(params.fast_threshold),
+                   max_corners=params.max_corners)
     if redetect:
         return good_features_to_track(
             gray, max_corners=params.max_corners, quality_level=0.02,
@@ -245,26 +256,35 @@ def stabilizer_analyze_step_fn(params: StabilizerParams,
         gray = torch.where(state.starvation_counter > 2,
                            clahe(gray, clip_limit=2.0, tile_grid=8), gray)
 
-    curr_pts, status, _err = lk_track(
-        state.prev_gray, gray, state.prev_pts, state.prev_mask,
-        win=params.lk_window, max_level=params.lk_levels,
-        iters=params.lk_iters, init_pts=_lk_init_pts(params, state, gray))
-    valid = state.prev_mask & status
-
-    draws = None if ransac_draws is None else ransac_draws(valid.sum())
-    if params.motion_model == "homography":
-        h_mat, est_ok, inliers = estimate_homography_ransac(
-            state.prev_pts, curr_pts, valid, generator=state.key,
-            threshold=params.ransac_threshold,
-            n_hypotheses=params.ransac_hypotheses, draws=draws)
-        raw = log_homography(
-            to_full_resolution(params, frame_u8.shape, h_mat)).reshape(9)
+    if params.deep_stabilization and params.motion_model != "homography":
+        # The learned estimator in place of LK + RANSAC: the points are
+        # carried, nothing is an inlier and the generator draws nothing.
+        raw = predict_transform(state.deepstab, state.prev_gray, gray)
+        curr_pts, valid = state.prev_pts, state.prev_mask
+        inliers = torch.zeros_like(state.prev_mask)
+        est_ok = torch.ones((), dtype=torch.bool, device=gray.device)
     else:
-        m, est_ok, inliers = estimate_similarity_ransac(
-            state.prev_pts, curr_pts, valid, generator=state.key,
-            threshold=params.ransac_threshold,
-            n_hypotheses=params.ransac_hypotheses, draws=draws)
-        raw = torch.stack([m[0, 2], m[1, 2], torch.atan2(m[1, 0], m[0, 0])])
+        curr_pts, status, _err = lk_track(
+            state.prev_gray, gray, state.prev_pts, state.prev_mask,
+            win=params.lk_window, max_level=params.lk_levels,
+            iters=params.lk_iters,
+            init_pts=_lk_init_pts(params, state, gray))
+        valid = state.prev_mask & status
+        draws = None if ransac_draws is None else ransac_draws(valid.sum())
+        if params.motion_model == "homography":
+            h_mat, est_ok, inliers = estimate_homography_ransac(
+                state.prev_pts, curr_pts, valid, generator=state.key,
+                threshold=params.ransac_threshold,
+                n_hypotheses=params.ransac_hypotheses, draws=draws)
+            raw = log_homography(
+                to_full_resolution(params, frame_u8.shape, h_mat)).reshape(9)
+        else:
+            m, est_ok, inliers = estimate_similarity_ransac(
+                state.prev_pts, curr_pts, valid, generator=state.key,
+                threshold=params.ransac_threshold,
+                n_hypotheses=params.ransac_hypotheses, draws=draws)
+            raw = torch.stack([m[0, 2], m[1, 2],
+                               torch.atan2(m[1, 0], m[0, 0])])
 
     # Drone high-frequency vibration chain: a similarity-space heuristic,
     # skipped by the homography model.
@@ -420,13 +440,47 @@ def stabilizer_emit_step_fn(params: StabilizerParams, state: StabilizerState
         row3 = torch.zeros((1, 3), dtype=torch.float32, device=dev)
         row3[0, 2] = 1.0
         m_use = (torch.cat([t_mat, row3]) @ torch.cat([r_mat, row3]))[:2]
-    state, out_u8 = _warp_bordered(
-        params, state, frame_u8,
-        lambda img: warp_affine_u8(img, m_use, border_mode=BORDER_CONSTANT))
+
+    def warp(img):
+        return warp_affine_u8(img, m_use, border_mode=BORDER_CONSTANT)
+
+    if params.enable_virtual_canvas and not params.crop_n_zoom:
+        # The virtual canvas replaces the plain warp's output: it runs on
+        # the RAW queued frame with the applied transform (the reference's
+        # currentTransform, Stabilizer.cpp:1130-1134). The fade border's
+        # history still advances with the bordered warp.
+        if params.border_type == "fade" and params.border_pad > 0:
+            state, _ = _warp_bordered(params, state, frame_u8, warp)
+        state, out_u8 = _emit_canvas(params, state, frame_u8,
+                                     torch.stack([dx, dy, da]))
+    else:
+        state, out_u8 = _warp_bordered(params, state, frame_u8, warp)
     new_state = state._replace(
         emit_idx=e + 1,
         envelope_exceeded=state.envelope_exceeded + exceeded.to(torch.int32))
     return new_state, out_u8
+
+
+def _emit_canvas(params: StabilizerParams, state: StabilizerState,
+                 frame_u8: torch.Tensor, t_smooth: torch.Tensor
+                 ) -> tuple[StabilizerState, torch.Tensor]:
+    """The virtual canvas emit (``core/canvas.py``). With
+    adaptive_canvas_size the active scale is decided from recent motion at
+    the first canvas use and frozen afterwards, on the device; otherwise
+    the allocation is the active window (no mask)."""
+    if params.adaptive_canvas_size:
+        scale = adaptive_canvas_scale(params, state.trans_ring, state.n_path,
+                                      state.canvas_scale)
+        active = scale
+    else:
+        scale = torch.full((), params.canvas_scale_factor,
+                           dtype=torch.float32, device=frame_u8.device)
+        active = None
+    canvas, weight, out = virtual_canvas_apply(
+        params, state.canvas, state.canvas_weight, frame_u8, t_smooth,
+        active_scale=active)
+    return state._replace(canvas=canvas, canvas_weight=weight,
+                          canvas_scale=scale), saturate_u8(out)
 
 
 def _emit_homography(params: StabilizerParams, state: StabilizerState,
@@ -543,10 +597,13 @@ def stabilizer_emit_gated_fn(params: StabilizerParams, state: StabilizerState
     emission-mutated fields) is held back and ``ready`` is False."""
     ready = (state.n_frames - state.emit_idx) >= params.effective_radius
     new_state, out = stabilizer_emit_step_fn(params, state)
+    names = ("emit_idx", "kalman_x", "kalman_p", "butter_state",
+             "fade_history", "fade_count", "envelope_exceeded")
+    if params.enable_virtual_canvas:
+        names += ("canvas", "canvas_weight", "canvas_scale")
     held = {name: torch.where(ready, getattr(new_state, name),
                               getattr(state, name))
-            for name in ("emit_idx", "kalman_x", "kalman_p", "butter_state",
-                         "fade_history", "fade_count", "envelope_exceeded")}
+            for name in names}
     new_state = new_state._replace(**held)
     return new_state, out, ready
 
@@ -633,6 +690,10 @@ class Stabilizer:
         if self._state is None:
             self._state = stabilizer_state_init(self.params, h, w,
                                                 self.device)
+            if self.params.deep_stabilization:
+                self._state = self._state._replace(
+                    deepstab=resolve_deepstab_weights(self.params,
+                                                      self.device))
             self._shape = (h, w)
         elif self._shape != (h, w):
             raise ValueError(
@@ -695,6 +756,10 @@ class Stabilizer:
         if isinstance(state, dict):
             state = SimpleNamespace(**state)
         self._state = state_from_numpy(state, self.device)
+        if self.params.deep_stabilization and \
+                not isinstance(self._state.deepstab, torch.nn.Module):
+            self._state = self._state._replace(
+                deepstab=resolve_deepstab_weights(self.params, self.device))
         self._shape = (height, width)
         self._frames_in = int(np.asarray(state.n_frames))
         self._emitted = int(np.asarray(state.emit_idx))

@@ -8,12 +8,21 @@ stream's ``torch.Generator`` (the JAX package's PRNG key), seeded from
 reproduced by it, so callers that need the JAX package's estimates inject
 those draws instead (``Stabilizer(ransac_draws=...)``).
 
+With ``enable_virtual_canvas`` the canvas and its weight are
+(Hc, Wc, 3) and (Hc, Wc) float32 buffers (``core.canvas.canvas_init_value``)
+(2160x3840 for a 1080p stream at the defaults); otherwise (1, 1, 3) and
+(1, 1). With ``deep_stabilization`` the wrappers put the network
+(``models.deepstab.DeepStabNet``) in ``deepstab``.
+
 ``state_from_numpy`` / ``state_to_numpy`` convert between this state and
 the JAX package's ``StabilizerState`` as a tree of numpy arrays (what its
 ``Stabilizer.state_dict()`` returns). The port's own tree has two entries
 more, ``key_state`` and ``key_device``: the generator's position in its
 stream and the kind of device it belongs to, so that a saved stream
 resumes its draws where it left off.
+
+``LegacyState`` is the legacy deterministic stabilizer's state
+(``core/legacy.py``), field for field with the JAX package's.
 """
 
 from __future__ import annotations
@@ -23,6 +32,8 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from video_stab_tpu_torch.core.canvas import canvas_init_value
+from video_stab_tpu_torch.models.deepstab import DeepStabNet, deepstab_from_flax
 from video_stab_tpu_torch.motion.hf import HFState, hf_init
 
 # Ring capacity for path/transform histories (state.py PATH_RING).
@@ -49,13 +60,13 @@ class StabilizerState(NamedTuple):
     fade_history: torch.Tensor     # (H + 2b, W + 2b, 3) f32 with the fade
                                    # border, else (1, 1, 3)
     fade_count: torch.Tensor       # int32
-    canvas: torch.Tensor           # (1, 1, 3) f32 (virtual canvas not ported)
-    canvas_weight: torch.Tensor    # (1, 1) f32
-    canvas_scale: torch.Tensor     # f32 scalar
+    canvas: torch.Tensor           # (Hc, Wc, 3) f32 virtual canvas, else (1, 1, 3)
+    canvas_weight: torch.Tensor    # (Hc, Wc) f32, else (1, 1)
+    canvas_scale: torch.Tensor     # f32 active canvas scale (0: undecided)
     starvation_counter: torch.Tensor  # int32
     envelope_exceeded: torch.Tensor   # int32
     key: torch.Generator           # the stream's RANSAC generator
-    deepstab: Any = ()
+    deepstab: Any = ()             # DeepStabNet with deep_stabilization
 
 
 def motion_channels(params) -> int:
@@ -89,6 +100,12 @@ def stabilizer_state_init(params, height: int, width: int,
     def i32():
         return torch.zeros((), dtype=torch.int32, device=device)
 
+    if params.enable_virtual_canvas:
+        canvas, canvas_weight = canvas_init_value(params, height, width,
+                                                  device)
+    else:
+        canvas, canvas_weight = zeros(1, 1, 3), zeros(1, 1)
+
     return StabilizerState(
         prev_gray=zeros(ha, wa),
         prev_pts=zeros(n, 2),
@@ -106,8 +123,8 @@ def stabilizer_state_init(params, height: int, width: int,
         hf=hf_init(device),
         fade_history=zeros(*fade_shape),
         fade_count=i32(),
-        canvas=zeros(1, 1, 3),
-        canvas_weight=zeros(1, 1),
+        canvas=canvas,
+        canvas_weight=canvas_weight,
         canvas_scale=zeros(),
         starvation_counter=i32(),
         envelope_exceeded=i32(),
@@ -147,14 +164,16 @@ def state_from_numpy(np_state: Any, device: torch.device) -> StabilizerState:
     caller continuing a stream with the JAX package's estimates injects
     JAX's draws (from the same key chain). ``hf`` (a tuple or a dict of
     the HFState fields), ``kalman_x`` / ``kalman_p`` / ``butter_state`` and
-    the fade border's ``fade_history`` / ``fade_count`` are carried; the
-    canvas buffers are not (not ported)."""
+    the fade border's ``fade_history`` / ``fade_count`` and the virtual
+    canvas's ``canvas`` / ``canvas_weight`` / ``canvas_scale`` are carried.
+    ``deepstab``, the JAX package's flax parameter tree or this package's
+    ``state_dict`` of the network as numpy, becomes a ``DeepStabNet``."""
     device = torch.device(device)
     fields = {}
     for name in StabilizerState._fields:
         value = _field(np_state, name)
         if name == "deepstab":
-            fields[name] = ()
+            fields[name] = _deepstab_from_tree(value, device)
         elif name == "hf":
             if isinstance(value, dict):
                 value = [value[f] for f in HFState._fields]
@@ -167,10 +186,6 @@ def state_from_numpy(np_state: Any, device: torch.device) -> StabilizerState:
                 gen.set_state(torch.from_numpy(
                     np.array(saved, dtype=np.uint8)))
             fields[name] = gen
-        elif name in ("canvas", "canvas_weight"):
-            shape = {"canvas": (1, 1, 3), "canvas_weight": (1, 1)}[name]
-            fields[name] = torch.zeros(shape, dtype=torch.float32,
-                                       device=device)
         else:
             fields[name] = _tensor(value, device)
     return StabilizerState(**fields)
@@ -183,7 +198,8 @@ def state_to_numpy(state: StabilizerState) -> dict:
     generator's ``get_state()``, its position in its stream, and
     ``key_device`` the device type it belongs to (a CPU and a CUDA
     generator's states do not interchange); ``hf`` is a tuple of arrays in
-    HFState's field order; ``deepstab`` is empty."""
+    HFState's field order; ``deepstab`` is the network's ``state_dict`` as
+    numpy arrays (empty without deep stabilization)."""
     out = {}
     for name in StabilizerState._fields:
         v = getattr(state, name)
@@ -195,8 +211,65 @@ def state_to_numpy(state: StabilizerState) -> dict:
             out["key_device"] = v.device.type
         elif name == "hf":
             out[name] = HFState(*(t.detach().cpu().numpy() for t in v))
+        elif name == "deepstab":
+            out[name] = {} if isinstance(v, tuple) else {
+                k: t.detach().cpu().numpy() for k, t in v.state_dict().items()}
         elif isinstance(v, torch.Tensor):
             out[name] = v.detach().cpu().numpy()
         else:
             out[name] = v
     return out
+
+
+def _deepstab_from_tree(tree: Any, device: torch.device) -> Any:
+    """The deep-stabilization network of a numpy state tree: () when the
+    tree holds none, else a DeepStabNet from the JAX package's flax tree
+    ({"params": ...}) or from this package's state_dict."""
+    if tree is None or len(tree) == 0:
+        return ()
+    if "params" in tree:
+        return deepstab_from_flax(tree).to(device)
+    net = DeepStabNet()
+    net.load_state_dict({k: torch.from_numpy(np.array(v))
+                         for k, v in tree.items()})
+    return net.eval().requires_grad_(False).to(device)
+
+
+class LegacyState(NamedTuple):
+    """Streaming state of the legacy deterministic path
+    (src/Stabilizer_legacy.cpp)."""
+
+    prev_gray: torch.Tensor        # (H, W) f32 full-resolution grayscale
+    prev_pts: torch.Tensor         # (N, 2) f32
+    prev_mask: torch.Tensor        # (N,) bool
+    trans_ring: torch.Tensor       # (PATH_RING, 3)
+    path_ring: torch.Tensor        # (PATH_RING, 3)
+    n_path: torch.Tensor           # int32
+    frame_ring: torch.Tensor       # (Q, H, W, 3) uint8
+    n_frames: torch.Tensor         # int32
+    emit_idx: torch.Tensor         # int32
+    frames_since_detect: torch.Tensor  # int32 (legacy:276-280)
+
+
+def legacy_state_init(params, height: int, width: int,
+                      device: torch.device) -> LegacyState:
+    """Allocate the legacy state for a (height, width) stream on
+    ``device``."""
+    n = params.max_corners
+    q = params.effective_radius + 1
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return LegacyState(
+        prev_gray=zeros(height, width),
+        prev_pts=zeros(n, 2),
+        prev_mask=zeros(n, dtype=torch.bool),
+        trans_ring=zeros(PATH_RING, 3),
+        path_ring=zeros(PATH_RING, 3),
+        n_path=zeros(dtype=torch.int32),
+        frame_ring=zeros(q, height, width, 3, dtype=torch.uint8),
+        n_frames=zeros(dtype=torch.int32),
+        emit_idx=zeros(dtype=torch.int32),
+        frames_since_detect=zeros(dtype=torch.int32),
+    )

@@ -8,12 +8,17 @@ The hypotheses' draws cannot be JAX's (``jax.random.randint`` on the
 stream key has no torch counterpart). By default they come from a
 ``torch.Generator`` on the points' device; a caller that must reproduce the
 JAX package's estimates passes JAX's own draws as ``draws``.
+
+The legacy stabilizer's deterministic solver (``remove_outliers_median``,
+``estimate_rigid_closed_form``) is here too, bit for bit with the JAX
+package's.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -118,3 +123,97 @@ def estimate_similarity_ransac(
     eye = torch.eye(2, 3, dtype=torch.float32, device=prev.device)
     m = torch.where(enough, _params_to_matrix(theta), eye)
     return m, enough, best_inliers & enough
+
+
+# The legacy solver below reproduces the JAX package's float32 results bit
+# for bit, so its sums and products follow what XLA compiles on the CPU:
+# a sum over more than 32 values is a sum of windows of 32 (zero-padded
+# evenly at both ends to a multiple of 32), each window and then the
+# windows' sums added in index order; ``a * b + c * d`` is one fused
+# multiply-add, fma(a, b, c * d). A last sum of 17 to 32 values is the
+# exception: XLA's code generator vectorizes it into partial sums, so
+# there the result can differ from the JAX package's by a few ulp. The
+# legacy path's sums run over ``max_corners`` points (200 by default:
+# seven windows), inside the exact range.
+_SUM_WINDOW = 32
+
+
+def ordered_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over dim 0 in XLA's CPU order (see above): every add is one
+    float32 add in a fixed order, so CPU and CUDA agree bit for bit."""
+    n = x.shape[0]
+    while n > _SUM_WINDOW:
+        m = -(-n // _SUM_WINDOW)
+        pad = m * _SUM_WINDOW - n
+        zeros = x.new_zeros((pad,) + tuple(x.shape[1:]))
+        x = torch.cat([zeros[:pad // 2], x, zeros[pad // 2:]]).reshape(
+            (m, _SUM_WINDOW) + tuple(x.shape[1:]))
+        acc = x[:, 0]
+        for k in range(1, _SUM_WINDOW):
+            acc = acc + x[:, k]
+        x, n = acc, m
+    acc = x[0]
+    for k in range(1, n):
+        acc = acc + x[k]
+    return acc
+
+
+def fma(a, b, c: torch.Tensor) -> torch.Tensor:
+    """float32 a * b + c with one rounding: the product of two float32
+    values is exact in float64, so the sum rounds once more (to float32).
+    ``a`` or ``b`` may be a Python float, taken as float32."""
+    def f64(v):
+        if isinstance(v, torch.Tensor):
+            return v.double()
+        return float(np.float32(v))
+    return (f64(a) * f64(b) + c.double()).to(torch.float32)
+
+
+def estimate_rigid_closed_form(prev: torch.Tensor, curr: torch.Tensor,
+                               mask: torch.Tensor) -> torch.Tensor:
+    """Legacy closed-form rigid solve (Stabilizer_legacy.cpp:323-358):
+    centroid translation + atan2(sum cross, sum dot) rotation.
+
+    Returns (dx, dy, da); zeros when under 3 valid points."""
+    w = mask.to(torch.float32)
+    n = ordered_sum(w)
+    ok = n >= 3.0
+    safe_n = torch.where(n > 0, n, torch.ones_like(n))
+    pm = ordered_sum(prev * w[:, None]) / safe_n
+    qm = ordered_sum(curr * w[:, None]) / safe_n
+    dx = qm[0] - pm[0]
+    dy = qm[1] - pm[1]
+    pc = prev - pm
+    qc = curr - qm
+    num = ordered_sum(w * fma(pc[:, 0], qc[:, 1], -(pc[:, 1] * qc[:, 0])))
+    den = ordered_sum(w * fma(pc[:, 0], qc[:, 0], pc[:, 1] * qc[:, 1]))
+    da = torch.where(den.abs() > 1e-6, torch.atan2(num, den),
+                     torch.zeros_like(num))
+    out = torch.stack([dx, dy, da])
+    return torch.where(ok, out, torch.zeros_like(out))
+
+
+def _masked_median_upper(vals: torch.Tensor, mask: torch.Tensor
+                         ) -> torch.Tensor:
+    """C++ nth_element median: sorted[n_valid // 2] (upper-mid for even n)
+    over the values with masked entries set to +inf
+    (Stabilizer_legacy.cpp:301-304)."""
+    big = torch.where(mask, vals, torch.full_like(vals, float("inf")))
+    s = torch.sort(big).values
+    n_valid = mask.to(torch.int64).sum()
+    idx = torch.clamp(n_valid // 2, 0, vals.shape[0] - 1)
+    return s.index_select(0, idx.view(1))[0]
+
+
+def remove_outliers_median(prev: torch.Tensor, curr: torch.Tensor,
+                           mask: torch.Tensor, threshold: float = 15.0,
+                           min_keep: int = 10) -> torch.Tensor:
+    """Legacy median-motion outlier rejection (Stabilizer_legacy.cpp:
+    283-321): the refined validity mask, or the original one when fewer
+    than ``min_keep`` points survive (legacy:317)."""
+    motions = curr - prev
+    mdx = motions[:, 0] - _masked_median_upper(motions[:, 0], mask)
+    mdy = motions[:, 1] - _masked_median_upper(motions[:, 1], mask)
+    dist = torch.sqrt(fma(mdx, mdx, mdy * mdy))
+    kept = mask & (dist <= threshold)
+    return torch.where(kept.to(torch.int32).sum() >= min_keep, kept, mask)

@@ -21,6 +21,18 @@ BORDER_REFLECT = 2
 BORDER_WRAP = 3
 BORDER_REFLECT_101 = 4
 
+_BORDER_NAMES = {"black": BORDER_CONSTANT, "constant": BORDER_CONSTANT,
+                 "replicate": BORDER_REPLICATE, "reflect": BORDER_REFLECT,
+                 "wrap": BORDER_WRAP, "reflect_101": BORDER_REFLECT_101,
+                 "reflect101": BORDER_REFLECT_101,
+                 "fade": BORDER_CONSTANT}   # fade: constant warp + history
+
+
+def border_mode_from_name(name: str) -> int:
+    """The reference's borderType strings (Stabilizer.cpp:31-38) as warp
+    border codes; unknown names are constant."""
+    return _BORDER_NAMES.get(name.lower(), BORDER_CONSTANT)
+
 
 def _map_index(i: torch.Tensor, n: int, mode: int
                ) -> tuple[torch.Tensor, torch.Tensor | None]:
