@@ -45,7 +45,14 @@ Phases (any failure is an uncaught exception and a nonzero exit):
    timed the same way: K6 over 4 levels of a real 1080p pair's
    full-resolution gray (200 GFTT corners at min_distance 30, win 21, 30
    iterations, eps 0.01) and K3 at 1080x1920 (``legacy_shape`` in their
-   rows).
+   rows). The stream axis of the multi-stream step at N = 8: K1 and K2
+   emitting from an (8, 16, 1080, 1920, 3) ring at per-stream slots, K3 on
+   (8, 540, 960), K6 on 8 x 200 points over 8 pyramids, each in one launch
+   against its batched plain version and against 8 single-stream launches
+   of the same kernel (bit for bit; K6: identical status, positions, err
+   and steps, each stream at the plain tolerance), with its device time at
+   N = 8 beside one stream's and its bound at N = 8 (``multistream`` in
+   their rows).
 4. The paths, each with the kernels' launch counters zeroed just before it
    and read just after (each kernel of the path must be > 0):
    a. ``ProcessingChain`` with exactly the ``__graft_entry__.entry()``
@@ -81,7 +88,21 @@ Phases (any failure is an uncaught exception and a nonzero exit):
       steady-state frames, the host reads of 8 more attributed to the GFTT
       NMS and the legacy re-detect flag, K1 / K3 / K6 launches per frame
       (> 0 where the path runs the kernel) and the peak device memory of
-      each run (the ``{"variants": ...}`` line).
+      each run (the ``{"variants": ...}`` line);
+   g. (run after phase 3) multi-stream serving, bench.py's
+      ``fps_8x1080p_aggregate`` configuration: 8 lockstep 1080p streams of
+      ``make_frames`` content (a jitter seed each, on the card),
+      ``StabilizerParams(smoothing_radius=15)``, ``MultiStreamStabilizer``
+      against 8 single-stream ``Stabilizer``s stepped in a host loop, in
+      turns (batched, looped, looped, batched): 16 warm-up ticks, ms/tick
+      and aggregate frames/s over 40 (CUDA events), launches and device ms
+      per tick and the busy share over 8 more (``torch.profiler``), K1 /
+      K2 / K3 / K6 launches per tick (the batched route must launch K6 and
+      the warp once a tick and K3 on the re-detect ticks), host reads over
+      8 more (sync debug mode), peak memory; then ``reset_stream(3)`` and
+      the ticks until stream 3 emits again while the others never stop;
+      then the batched homography route (the ``{"multistream": ...}``
+      line).
 5. Steady-state ms/frame of the chain, the bare ``Stabilizer`` and the
    homography ``Stabilizer`` at 1080p (CUDA events); offline frames/s of
    both models over 240 frames at 1080p with the analysis, smoothing and
@@ -98,10 +119,14 @@ Phases (any failure is an uncaught exception and a nonzero exit):
    run of each new smoother (and the drone mode), all fed the same RANSAC
    draws. Phase 5b also runs the drone config and the wide-band run on
    the card against the CPU, and each variant of phase 4f (the legacy
-   stabilizer and the deep network at their own tolerances).
+   stabilizer and the deep network at their own tolerances), and the
+   batched multi-stream route (4 streams of 288x512, similarity within 1
+   on >= 99.9 % of pixels, homography on >= 99.5 %).
 
 Then one ``{"kernels": [...]}`` line: per kernel the phase-3 numbers, the
-launches of each phase-4 path and its launches per frame. Its ``ms``,
+launches of each phase-4 path and its launches per frame (per tick of 8
+frames on the multi-stream runs; K1, K2, K3 and K6 also carry their
+``multistream`` numbers at N = 8 and their launches per tick). Its ``ms``,
 ``plain_ms`` and ``library_ms`` are device times, so they compare with one
 another; ``call_ms``, ``plain_call_ms`` and ``library_call_ms`` are the
 same calls' times with the host's work. The line before
@@ -2139,6 +2164,399 @@ def small_reference_variants(torch, frames, sp) -> None:
                       outs[False])
 
 
+# The multi-stream step (video_stab_tpu_torch/parallel/): bench.py's
+# fps_8x1080p_aggregate configuration, 8 lockstep 1080p streams with
+# smoothing_radius 15 and the defaults otherwise.
+MS_STREAMS = 8
+MS_POOL = 12                      # distinct frames per stream, cycled
+MS_WARM, MS_TIMED, MS_PROFILED, MS_READS = 16, 40, 8, 8
+MS_TICKS = MS_WARM + MS_TIMED     # ticks counted by the launch counters
+MS_RESET = 3                      # the stream reset mid-run
+
+
+def ms_params(**kw):
+    from video_stab_tpu_torch.core.params import StabilizerParams
+    return StabilizerParams(smoothing_radius=15, **kw)
+
+
+def check_batched_kernels(torch, dev) -> dict:
+    """Phase 3, the stream axis: K1, K2, K3 and K6 at N = 8 streams, the
+    multi-stream path's shapes, each against its batched plain version and
+    against 8 single-stream launches of the same kernel (bit for bit for
+    K1, K2 and K3 (K3 within 1e-5 of the plain version, as at N = 1); for
+    K6 identical status, positions, err and steps to the 8 launches and
+    each stream at the plain version's tolerance), then its device time at
+    N = 8 beside one stream's (x 8) and its bound at N = 8. -> {kernel
+    name: row}"""
+    import dataclasses
+
+    from video_stab_tpu_torch.core.stabilizer import (_analysis_gray,
+                                                      _detect_features)
+    from video_stab_tpu_torch.kernels import features as kfeat
+    from video_stab_tpu_torch.kernels import lk as klk
+    from video_stab_tpu_torch.kernels import warp as kwarp
+    from video_stab_tpu_torch.ops.lk import lk_planes
+    from video_stab_tpu_torch.ops.warp import invert_affine
+
+    n = MS_STREAMS
+    sp = ms_params()
+    q = sp.effective_radius + 1
+    h, w = 1080, 1920
+    pool = torch.from_numpy(make_frames(h, w, 2 * n, seed=6)).to(dev)
+    # The (N, Q, H, W, 3) ring of the batched emit, every slot its own
+    # memory; the timed calls cycle the slot table, so each reads frames
+    # that are cold in L2, as on the path.
+    ring = pool[torch.arange(n * q, device=dev) % (2 * n)].reshape(
+        n, q, h, w, 3)
+    rng = np.random.default_rng(12)
+    slot_np = [(rng.integers(0, q, n) + k) % q for k in range(N_COLD)]
+    slot_tabs = [torch.from_numpy(t.astype(np.int32)).to(dev)
+                 for t in slot_np]
+    rows = {}
+
+    def report(name, label, batched, single, nbytes, flops, symbols,
+               extra):
+        dev_us = device_us(torch, batched, symbols)
+        one_us = device_us(torch, single, symbols)
+        b_us, b_by = bound_us(nbytes, flops)
+        row = dict(n_streams=n, shape=label, device_us=dev_us,
+                   single_device_us=one_us, eight_single_device_us=n * one_us,
+                   bound_us=b_us, bound_by=b_by, bound_share=b_us / dev_us,
+                   **extra)
+        print(f"{name} {label}: device {dev_us:.3f} us for {n} streams, "
+              f"one stream {one_us:.3f} us (x {n} = {n * one_us:.3f} us); "
+              f"bound at N = {n} {b_us:.3f} us ({b_by}), bound_share "
+              f"{row['bound_share']:.3f}")
+        rows[name] = row
+
+    a = np.radians(rng.normal(0, 0.5, n))
+    fwd = np.stack([[[np.cos(t), -np.sin(t), dx], [np.sin(t), np.cos(t), dy]]
+                    for t, dx, dy in zip(a, *rng.normal(0, 6, (2, n)))])
+    minv_aff = invert_affine(torch.from_numpy(fwd.astype(np.float32))
+                             .to(dev)).reshape(n, 6).contiguous()
+    hm = np.tile(np.eye(3), (n, 1, 1)) + rng.normal(0, 1e-3, (n, 3, 3))
+    hm[:, :2, 2] += rng.normal(0, 6, (n, 2))
+    hm[:, 2, :2] = rng.normal(0, 2e-6, (n, 2))
+    minv_hom = torch.from_numpy(np.linalg.inv(hm).reshape(n, 9)
+                                .astype(np.float32)).to(dev)
+    for name, label, minv, batched, plain, single, proj in (
+            ("warp_affine_u8", "K1", minv_aff,
+             kwarp.warp_affine_u8_batched_cuda,
+             kwarp.warp_affine_u8_batched_plain, kwarp.warp_affine_u8_cuda,
+             False),
+            ("warp_homography_u8", "K2", minv_hom,
+             kwarp.warp_homography_u8_batched_cuda,
+             kwarp.warp_homography_u8_batched_plain,
+             kwarp.warp_homography_u8_cuda, True)):
+        got = batched(ring, slot_tabs[0], minv, h, w, 0)
+        want = plain(ring, slot_tabs[0], minv, h, w, 0)
+        ones = torch.stack([single(ring[b, int(slot_np[0][b])], minv[b], h,
+                                   w, 0) for b in range(n)])
+        torch.cuda.synchronize()
+        err = int((got.int() - want.int()).abs().max())
+        same = bool(torch.equal(got, ones))
+        print(f"{label} batched emit {n}x1080x1920x3 ring of {q}: "
+              f"max|kernel-plain| {err}, equal to {n} single launches "
+              f"{same}")
+        assert err == 0 and same, label
+        report(name, f"{n}x{q}x1080x1920x3 ring emit",
+               lambda i, bt=batched, m=minv: bt(ring, slot_tabs[i % N_COLD],
+                                                m, h, w, 0),
+               lambda i, sg=single, m=minv: sg(ring[i % n, i % q],
+                                               m[i % n], h, w, 0),
+               n * 2 * h * w * 3, n * h * w * WARP_FLOPS[proj](3),
+               ["warp_tile_kernel"],
+               dict(max_abs_err=float(err), equal_to_single_launches=same))
+
+    gray = _analysis_gray(sp, pool[:n].float()).contiguous()
+    ha, wa = gray.shape[-2:]
+    resp, peak = kfeat.corner_response_cuda(gray)
+    p_resp, p_peak = kfeat.corner_response_plain(gray)
+    ones = [kfeat.corner_response_cuda(gray[b]) for b in range(n)]
+    torch.cuda.synchronize()
+    err = float((resp - p_resp).abs().max())
+    n_peak = int((peak != p_peak).sum())
+    same = all(torch.equal(resp[b], r) and torch.equal(peak[b], pk)
+               for b, (r, pk) in enumerate(ones))
+    print(f"K3 batched {n}x{ha}x{wa}: max|resp diff| {err:.3e}, {n_peak} "
+          f"peak-mask differences, equal to {n} single launches {same}")
+    assert err <= 1e-5 and n_peak == 0 and same
+    report("corner_response", f"{n}x{ha}x{wa}",
+           lambda i: kfeat.corner_response_cuda(gray),
+           lambda i: kfeat.corner_response_cuda(gray[i % n]),
+           n * ha * wa * (4 + 4 + 1), n * ha * wa * CORNER_FLOPS,
+           ["corner_strip_kernel"],
+           dict(max_abs_err=err, equal_to_single_launches=same))
+
+    curr = _analysis_gray(sp, pool[n:2 * n].float()).contiguous()
+    pts, mask = _detect_features(sp, gray, redetect=True)
+    assert int(mask.sum()) == n * sp.max_corners, int(mask.sum())
+    planes = lk_planes(gray, curr, sp.lk_levels)
+    win, iters, eps = sp.lk_window, sp.lk_iters, 0.03
+    args = (pts, mask, None, win, iters, eps, 1e-4)
+    k_steps, p_steps = (torch.empty(mask.shape, dtype=torch.int32,
+                                    device=dev) for _ in range(2))
+    got = klk.lk_levels_cuda(*planes, *args, steps=k_steps)
+    want = klk.lk_levels_plain(*planes, *args, steps=p_steps)
+    same = True
+    for b in range(n):
+        one_steps = torch.empty(mask.shape[1], dtype=torch.int32, device=dev)
+        one = klk.lk_levels_cuda([p[b] for p in planes[0]],
+                                 [c[b] for c in planes[1]], pts[b], mask[b],
+                                 None, win, iters, eps, 1e-4,
+                                 steps=one_steps)
+        torch.cuda.synchronize()
+        same &= all(torch.equal(g[b], o) for g, o in zip(got, one)) and \
+            torch.equal(k_steps[b], one_steps)
+        lk_agreement(f"lk_track batched stream {b}", [t[b] for t in got],
+                     [t[b] for t in want], eps)
+    k = k_steps.cpu().numpy()
+    print(f"K6 batched {n}x200 points: equal to {n} single launches "
+          f"(status, positions, err, steps) {same}; Newton steps per point "
+          f"median {float(np.median(k)):.1f}, max {int(k.max())}")
+    assert same
+    levels = len(planes[0])
+    n_pts, win2 = pts.shape[0] * pts.shape[1], (win + 1) ** 2
+    nbytes = n_pts * (levels * 4 * win2 * 4 + 8 + 1 + 8 + 1 + 4)
+    flops = win * win * (n_pts * levels * LK_TEMPLATE_FLOPS
+                         + float(k.mean()) * n_pts * LK_STEP_FLOPS)
+    single_planes = ([p[0] for p in planes[0]], [c[0] for c in planes[1]])
+    report("lk_track", f"{n}x200 points {ha}x{wa} {levels} levels",
+           lambda i: klk.lk_levels_cuda(*planes, *args),
+           lambda i: klk.lk_levels_cuda(*single_planes, pts[0], mask[0],
+                                        None, win, iters, eps, 1e-4),
+           nbytes, flops, ["lk_track_kernel"],
+           dict(equal_to_single_launches=bool(same),
+                steps_max=int(k.max()), steps_median=float(np.median(k))))
+    clock = sm_clock_mhz(torch, lambda i: klk.lk_levels_cuda(*planes, *args))
+    floor = (int(k.max()) * LK_STEP_FLOOR_CYCLES
+             + levels * LK_TEMPLATE_FLOOR_CYCLES) / clock
+    rows["lk_track"].update(latency_floor_us=floor, sm_clock_mhz=clock,
+                            floor_share=floor / rows["lk_track"]["device_us"])
+    print(f"K6 batched: latency floor {floor:.3f} us at {clock:.0f} MHz, "
+          f"floor_share {rows['lk_track']['floor_share']:.3f}")
+    del ring, pool
+    torch.cuda.empty_cache()
+    return rows
+
+
+def multistream_pool(torch, dev):
+    """(MS_POOL, 8, 1080, 1920, 3) u8 on the card: stream i is
+    ``make_frames`` content with its own jitter seed."""
+    return torch.stack([torch.from_numpy(make_frames(1080, 1920, MS_POOL,
+                                                     seed=100 + i))
+                        for i in range(MS_STREAMS)], 1).to(dev)
+
+
+def ms_turn(torch, label, route, params, pool, reset=False):
+    """One run of phase 4g: the batched MultiStreamStabilizer or 8
+    single-stream Stabilizers stepped in a host loop, on the same frames,
+    counters zeroed around it: MS_WARM ticks, MS_TIMED ticks timed by CUDA
+    events, MS_PROFILED under torch.profiler, MS_READS under the sync debug
+    mode. With ``reset``, then reset_stream(MS_RESET) and ticks until that
+    stream emits again."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from video_stab_tpu_torch.core.params import ModeParams
+    from video_stab_tpu_torch.core.stabilizer import Stabilizer
+    from video_stab_tpu_torch.parallel import MultiStreamStabilizer
+
+    n = MS_STREAMS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    if route == "batched":
+        ms = MultiStreamStabilizer(params, n, mode=ModeParams())
+        step = ms.stabilize_batch_device
+    else:
+        singles = [Stabilizer(dataclasses.replace(params,
+                                                  seed=params.seed + i),
+                              mode=ModeParams()) for i in range(n)]
+
+        def step(batch):
+            return [s.stabilize_device(batch[i])
+                    for i, s in enumerate(singles)]
+    zero_counts()
+    tick = 0
+
+    def run(k):
+        nonlocal tick
+        out = None
+        for _ in range(k):
+            out = step(pool[tick % len(pool)])
+            tick += 1
+        return out
+
+    run(MS_WARM)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = run(MS_TIMED)
+    end.record()
+    end.synchronize()
+    ms_tick = start.elapsed_time(end) / MS_TIMED
+    launches = read_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(MS_PROFILED)
+        torch.cuda.synchronize()
+    n_launch, records, busy_us = kernel_counts(prof)
+    dev_ms = busy_us / 1000.0 / MS_PROFILED
+    window = [pool[(tick + i) % len(pool)] for i in range(MS_READS)]
+    tick += MS_READS
+    by_line, n_syncs, nms = count_syncs(torch, label, step, window)
+    torch.cuda.synchronize()
+    peak_mb = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    frames = out if route == "batched" else torch.stack(out)
+    assert tuple(frames.shape) == (n, 1080, 1920, 3), frames.shape
+    std = float(frames.float().std())
+    assert std > 5.0, std
+    per_tick = {k: launches[k] / MS_TICKS for k in
+                ("warp_affine_u8", "warp_homography_u8", "corner_response",
+                 "lk_track")}
+    row = dict(route=route, ms_per_tick=ms_tick,
+               aggregate_frames_per_s=n * 1000.0 / ms_tick,
+               launches_per_tick=n_launch / MS_PROFILED,
+               kernel_records_per_tick=records / MS_PROFILED,
+               device_ms_per_tick=dev_ms, device_busy_share=dev_ms / ms_tick,
+               kernel_launches_per_tick=per_tick, host_reads=n_syncs,
+               nms_reads=nms, reads_ticks=MS_READS,
+               peak_memory_mib=peak_mb)
+    print(f"{label}: {ms_tick:.3f} ms/tick, {row['aggregate_frames_per_s']:.1f}"
+          f" aggregate frames/s (CUDA events over {MS_TIMED} ticks); "
+          f"profiled: {row['launches_per_tick']:.1f} launches/tick, device "
+          f"{dev_ms:.3f} ms/tick, busy {row['device_busy_share'] * 100:.2f}%;"
+          f" K1 / K2 / K3 / K6 launches per tick {per_tick}; host reads over "
+          f"{MS_READS} ticks {n_syncs} ({nms} GFTT NMS); peak device memory "
+          f"above the start {peak_mb:.1f} MiB")
+    n_hom = sum(c for k, c in by_line.items()
+                if k.startswith("motion/homography"))
+    assert n_syncs == nms + n_hom, (label, by_line)
+    if params.motion_model != "homography":
+        assert n_hom == 0, (label, by_line)
+    if route == "batched":
+        # One launch a tick for all streams: K6 and the warp on every tick
+        # but the first, K3 on the first and on every re-detect tick.
+        warp = launches["warp_homography_u8" if params.motion_model ==
+                        "homography" else "warp_affine_u8"]
+        redetects = sum(1 for t in range(1, MS_TICKS)
+                        if t % params.redetect_interval == 0)
+        assert launches["lk_track"] == MS_TICKS - 1, launches
+        assert warp == MS_TICKS - 1, launches
+        assert launches["corner_response"] == 1 + redetects, launches
+    if reset:
+        ms.reset_stream(MS_RESET)
+        others = [i for i in range(n) if i != MS_RESET]
+        back = None
+        for k in range(1, 3 * params.effective_radius):
+            run(1)
+            assert ms.last_valid[others].all(), ms.last_valid
+            if ms.last_valid[MS_RESET]:
+                back = k
+                break
+        print(f"{label}: reset_stream({MS_RESET}); stream {MS_RESET} emits "
+              f"again after {back} ticks (effective_radius "
+              f"{params.effective_radius}); the other streams emitted on "
+              f"every tick")
+        assert back == params.effective_radius, back
+        row["ticks_until_reset_stream_emits"] = back
+    return row, launches
+
+
+def run_multistream(torch, dev) -> tuple[dict, dict]:
+    """Phase 4g: bench.py's multi-stream configuration (8 x 1080p,
+    smoothing_radius 15) batched against 8 single-stream Stabilizers in a
+    host loop, in turns (batched, looped, looped, batched), the frames on
+    the card; then the batched homography run, and reset_stream mid-run.
+    -> (launches by run, numbers)"""
+    pool = multistream_pool(torch, dev)
+    by_run, turns = {}, {"batched": [], "looped": []}
+    for turn, route in enumerate(("batched", "looped", "looped", "batched")):
+        label = f"multistream 8x1080p {route} turn {turn}"
+        row, launches = ms_turn(torch, label, route, ms_params(), pool,
+                                reset=turn == 3)
+        turns[route].append(row)
+        by_run[f"multistream 8x1080p {route}"] = launches
+    label = "multistream 8x1080p homography batched"
+    hom, launches = ms_turn(torch, label, "batched",
+                            ms_params(motion_model="homography"), pool)
+    by_run[label] = launches
+    del pool
+    torch.cuda.empty_cache()
+
+    def mean(route, key):
+        return float(np.mean([r[key] for r in turns[route]]))
+
+    summary = {route: {key: mean(route, key) for key in
+                       ("ms_per_tick", "aggregate_frames_per_s",
+                        "launches_per_tick", "device_ms_per_tick",
+                        "device_busy_share", "host_reads")}
+               for route in turns}
+    print(f"multistream 8x1080p: batched {summary['batched']['ms_per_tick']:.3f}"
+          f" ms/tick ({summary['batched']['aggregate_frames_per_s']:.1f} "
+          f"frames/s) against looped {summary['looped']['ms_per_tick']:.3f} "
+          f"ms/tick ({summary['looped']['aggregate_frames_per_s']:.1f} "
+          f"frames/s); homography batched {hom['ms_per_tick']:.3f} ms/tick, "
+          f"{hom['host_reads']} host reads over {MS_READS} ticks")
+    return by_run, {"turns": turns, "mean": summary,
+                    "homography batched": hom}
+
+
+def small_reference_multistream(torch) -> None:
+    """Phase 5b, the batched route: 4 streams on the card against the CPU
+    on a small clip (288x512, each stream its own content), fed the same
+    per-stream RANSAC draws: the similarity model within 1 on >= 99.9 % of
+    pixels; the homography model on >= 99.5 % (the single stream's bound:
+    ``eigh`` and ``matrix_exp`` round apart on the two devices)."""
+    import dataclasses
+
+    from video_stab_tpu_torch.core.params import ModeParams, StabilizerParams
+    from video_stab_tpu_torch.parallel import MultiStreamStabilizer
+
+    n, h, w, ticks = 4, 288, 512, 16
+    clips = np.stack([make_frames(h, w, ticks, seed=20 + i)
+                      for i in range(n)], 1)
+    sp = StabilizerParams(smoothing_radius=5, analysis_width=128,
+                          analysis_height=72, max_corners=64,
+                          ransac_hypotheses=64)
+    for model, share in (("similarity", 0.999), ("homography", 0.995)):
+        p = dataclasses.replace(sp, motion_model=model)
+        width = 4 if model == "homography" else 2
+        outs = {}
+        for use_cuda in (False, True):
+            hooks = [injected_draws(torch, ticks, p.ransac_hypotheses,
+                                    width, 30 + i) for i in range(n)]
+
+            def inject(n_valid, hooks=hooks):
+                return torch.stack([hk(v) for hk, v in
+                                    zip(hooks, n_valid.cpu())])
+            ms = MultiStreamStabilizer(p, n,
+                                       mode=ModeParams(use_cuda=use_cuda),
+                                       ransac_draws=inject)
+            got = [o for o in (ms.stabilize_batch(b) for b in clips)
+                   if o is not None]
+            outs[use_cuda] = np.stack(got)
+        assert len(outs[True]) == ticks - p.effective_radius + 1
+        compare_small(f"small input {h}x{w}: CUDA vs CPU multistream {n} "
+                      f"streams {model}", outs[True], outs[False],
+                      share=share)
+
+
+class Lap:
+    """Prints the seconds each phase took (host clock), for the script's
+    own time budget."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def __call__(self, label: str) -> None:
+        now = time.perf_counter()
+        print(f"time: {label} {now - self.t:.1f} s")
+        self.t = now
+
+
 def main() -> int:
     import torch
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -2162,9 +2580,16 @@ def main() -> int:
         if "registers" in line or "spill" in line.lower():
             print(f"  ptxas: {line.strip()}")
 
+    lap = Lap()
     kernels = check_kernels(torch, dev, launch_floor)
     for name, row in check_legacy_shapes(torch, dev).items():
         kernels[name]["legacy_shape"] = row
+    lap("phase 3")
+    for name, row in check_batched_kernels(torch, dev).items():
+        kernels[name]["multistream"] = row
+    lap("phase 3, the stream axis")
+    ms_paths, ms_numbers = run_multistream(torch, dev)
+    lap("phase 4g")
 
     pool = torch.from_numpy(make_frames(1080, 1920, N_FRAMES)).to(dev)
     config_paths, config_numbers = run_configs(torch, dev, pool)
@@ -2181,17 +2606,26 @@ def main() -> int:
                  for name in STREAM_SMOOTHERS}}
     by_path.update(config_paths)
     frames.update({label: CONFIG_FRAMES for label in config_paths})
+    lap("phases 4a-4e")
     variant_paths, variant_numbers = run_variants(torch, dev, pool)
+    lap("phase 4f")
     by_path.update(variant_paths)
     frames.update({label: VARIANT_FRAMES for label in variant_paths})
+    # The multi-stream runs count per tick (8 frames).
+    by_path.update(ms_paths)
+    frames.update({label: MS_TICKS for label in ms_paths})
     steady_state(torch, dev, pool)
     routes = lk_routes(torch, dev, pool)
     del pool
+    lap("phases 5a, 5c")
     offline = offline_throughput(torch, dev)
+    lap("offline throughput")
     by_path.update(offline)
     frames.update({label: OFFLINE_TIMED_FRAMES for label in offline})
     small_reference(torch, dev)
     small_reference_configs(torch)
+    small_reference_multistream(torch)
+    lap("phase 5b")
 
     meta = {
         "warp_affine_u8": ("video_stab_tpu_torch/csrc/warp.cu",
@@ -2246,6 +2680,13 @@ def main() -> int:
                       "legacy_shape"):
             if extra in k:
                 row[extra] = k[extra]
+        if "multistream" in k:
+            row["multistream"] = dict(k["multistream"], launches_per_tick={
+                route: r["kernel_launches_per_tick"][name]
+                for route, r in (("batched", ms_numbers["turns"]["batched"][0]),
+                                 ("looped", ms_numbers["turns"]["looped"][0]),
+                                 ("homography batched",
+                                  ms_numbers["homography batched"]))})
         if name == "lk_track":
             row["also_replaces"] = ["tools/lk_kernel_proto.py:33",
                                     "tools/lk_inkernel_probe.py:107",
@@ -2262,6 +2703,7 @@ def main() -> int:
     print(json.dumps({"lk_routes": routes}))
     print(json.dumps({"configs": config_numbers}))
     print(json.dumps({"variants": variant_numbers}))
+    print(json.dumps({"multistream": ms_numbers}))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -991,3 +991,162 @@ def test_deep_stream_matches_cpu(dev, monkeypatch):
                     frames) for use_cuda in (False, True)]
     assert len(outs[0]) == len(frames)
     assert _within_one(outs[1], outs[0]) >= 0.995
+
+
+# The multi-stream step (video_stab_tpu_torch/parallel/): K1, K2, K3 and K6
+# with a stream axis, one launch for all N streams.
+N_STREAMS = 8
+
+
+def _ring_input(dev, n, q, h, w, ch, seed):
+    rng = np.random.default_rng(seed)
+    shape = (n, q, h, w) + ((ch,) if ch == 3 else ())
+    ring = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8))
+    slots = torch.from_numpy(rng.integers(0, q, n).astype(np.int32))
+    return ring.to(dev), slots.to(dev), rng
+
+
+@pytest.mark.parametrize("shape", [(8, 3, 67, 129), (8, 2, 1080, 1920)])
+@pytest.mark.parametrize("mode", [0, 4])
+@pytest.mark.parametrize("ch", [1, 3])
+@pytest.mark.parametrize("kind", ["affine", "homography"])
+def test_batched_warp_kernels_match_plain_and_single_launches(
+        dev, kind, ch, mode, shape):
+    """K1 / K2 on an (N, Q, H, W, C) ring at per-stream slots, one launch:
+    bit for bit against the batched plain version and against N
+    single-frame launches of the same kernel."""
+    from video_stab_tpu_torch.kernels import warp as kwarp
+    n, q, h, w = shape
+    ring, slots, rng = _ring_input(dev, n, q, h, w, ch, seed=h + ch + mode)
+    if kind == "affine":
+        minv = torch.from_numpy(np.stack([
+            _rigid(rng.normal(0, 1.0), *rng.normal(0, 6, 2), cx=w / 2,
+                   cy=h / 2).reshape(6) for _ in range(n)])
+            .astype(np.float32)).to(dev)
+        batched, plain, single = (kwarp.warp_affine_u8_batched_cuda,
+                                  kwarp.warp_affine_u8_batched_plain,
+                                  kwarp.warp_affine_u8_cuda)
+        counter = "LAUNCHES"
+    else:
+        hm = np.tile(np.eye(3), (n, 1, 1)) + rng.normal(0, 1e-3, (n, 3, 3))
+        hm[:, 2, :2] = rng.normal(0, 2e-5, (n, 2))
+        minv = torch.from_numpy(hm.reshape(n, 9).astype(np.float32)).to(dev)
+        batched, plain, single = (kwarp.warp_homography_u8_batched_cuda,
+                                  kwarp.warp_homography_u8_batched_plain,
+                                  kwarp.warp_homography_u8_cuda)
+        counter = "HOMOGRAPHY_LAUNCHES"
+    before = getattr(kwarp, counter)
+    got = batched(ring, slots, minv, h, w, mode)
+    assert getattr(kwarp, counter) == before + 1
+    want = plain(ring, slots, minv, h, w, mode)
+    singles = torch.stack([single(ring[b, int(slots[b])].contiguous(),
+                                  minv[b].contiguous(), h, w, mode)
+                           for b in range(n)])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, singles)
+
+
+@pytest.mark.parametrize("shape", [(8, 540, 960), (8, 37, 53), (3, 1, 29)])
+def test_batched_corner_kernel_matches_plain_and_single_launches(dev,
+                                                                shape):
+    from video_stab_tpu_torch.kernels import features as kfeat
+    gray = torch.from_numpy(np.stack([
+        _textured(shape[1], shape[2], seed) for seed in range(shape[0])])
+    ).to(dev)
+    before = kfeat.LAUNCHES
+    resp, peak = kfeat.corner_response(gray)
+    assert kfeat.LAUNCHES == before + 1
+    want_r, want_p = kfeat.corner_response_plain(gray)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(resp, want_r, atol=1e-5, rtol=0)
+    for b in range(shape[0]):
+        r1, p1 = kfeat.corner_response_cuda(gray[b].contiguous())
+        assert torch.equal(resp[b], r1) and torch.equal(peak[b], p1)
+
+
+def test_batched_lk_kernel_matches_plain_and_single_launches(dev):
+    """K6 over N = 8 streams' pyramids at 540 x 960 with 200 GFTT corners
+    each, one launch: each stream at the plain version's tolerance, and
+    identical status, positions, err and steps to 8 single-stream
+    launches."""
+    from video_stab_tpu_torch.kernels import lk as klk
+    from video_stab_tpu_torch.ops.features import good_features_to_track
+    from video_stab_tpu_torch.ops.lk import lk_planes
+    pairs = [_lk_pair(dev, 540, 960, 10 + b, (6.4 - b, -9.7 + 2 * b))
+             for b in range(N_STREAMS)]
+    prev = torch.stack([p for p, _ in pairs])
+    curr = torch.stack([c for _, c in pairs])
+    pts, mask = good_features_to_track(prev, max_corners=200,
+                                       quality_level=0.01, min_distance=15.0)
+    planes = lk_planes(prev, curr, 2)
+    steps = torch.zeros((N_STREAMS, 200), dtype=torch.int32, device=dev)
+    before = klk.LAUNCHES
+    got = klk.lk_levels_cuda(*planes, pts, mask, None, 15, 20, 0.03, 1e-4,
+                             steps=steps)
+    assert klk.LAUNCHES == before + 1
+    want = klk.lk_levels_plain(*planes, pts, mask, None, 15, 20, 0.03, 1e-4)
+    for b in range(N_STREAMS):
+        one_steps = torch.zeros(200, dtype=torch.int32, device=dev)
+        one = klk.lk_levels_cuda([p[b].contiguous() for p in planes[0]],
+                                 [c[b].contiguous() for c in planes[1]],
+                                 pts[b].contiguous(), mask[b].contiguous(),
+                                 None, 15, 20, 0.03, 1e-4, steps=one_steps)
+        torch.cuda.synchronize()
+        for g, o in zip(got, one):
+            assert torch.equal(g[b], o)
+        assert torch.equal(steps[b], one_steps)
+        _check_lk([t[b] for t in got], [t[b] for t in want], 0.03)
+
+
+def _stream_draws(n_streams, n_steps, k, width, seed):
+    hooks = [_draws(n_steps, k, width, seed + i) for i in range(n_streams)]
+
+    def inject(n_valid):
+        return torch.stack([h(v) for h, v in zip(hooks, n_valid.cpu())])
+    return inject
+
+
+@pytest.mark.parametrize("kw", [{}, {"motion_model": "homography"},
+                                {"smoothing_method": "kalman"}])
+def test_multistream_on_the_card_matches_cpu(dev, kw):
+    """The batched step for 4 streams on the card (one launch of each
+    kernel a tick) against the CPU (plain versions), the same frames and
+    draws: u8 frames within 1 on >= 99.5 % of pixels; each tick launches
+    K6 and the emit warp once, K3 once on re-detect ticks."""
+    from video_stab_tpu_torch.core.params import ModeParams, StabilizerParams
+    from video_stab_tpu_torch.kernels import features as kfeat
+    from video_stab_tpu_torch.kernels import lk as klk
+    from video_stab_tpu_torch.kernels import warp as kwarp
+    from video_stab_tpu_torch.parallel import MultiStreamStabilizer
+    p = StabilizerParams(**{**SMALL_STREAM, **kw})
+    width = 4 if p.motion_model == "homography" else 2
+    n, ticks = 4, 14
+    clips = np.stack([_jittered(ticks, seed=3 + i) for i in range(n)], 1)
+    outs, counts = [], []
+    for use_cuda in (False, True):
+        ms = MultiStreamStabilizer(p, n, mode=ModeParams(use_cuda=use_cuda),
+                                   ransac_draws=_stream_draws(
+                                       n, ticks, p.ransac_hypotheses,
+                                       width, 5))
+        got = []
+        for t, batch in enumerate(clips):
+            before = (kfeat.LAUNCHES, klk.LAUNCHES,
+                      kwarp.LAUNCHES + kwarp.HOMOGRAPHY_LAUNCHES)
+            out = ms.stabilize_batch(batch)
+            after = (kfeat.LAUNCHES, klk.LAUNCHES,
+                     kwarp.LAUNCHES + kwarp.HOMOGRAPHY_LAUNCHES)
+            counts.append((use_cuda, t, tuple(a - b for a, b in
+                                              zip(after, before))))
+            if out is not None:
+                got.append(out)
+        outs.append(np.stack(got))
+    assert _within_one(outs[1], outs[0]) >= 0.995
+    for use_cuda, t, (k3, k6, k1) in counts:
+        if not use_cuda:
+            assert (k3, k6, k1) == (0, 0, 0)
+        elif t == 0:
+            assert (k3, k6, k1) == (1, 0, 0)
+        else:
+            assert (k6, k1) == (1, 1)
+            assert k3 == (1 if t % p.redetect_interval == 0 else 0)

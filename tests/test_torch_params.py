@@ -105,6 +105,8 @@ def test_port_never_imports_jax():
         "import video_stab_tpu_torch.ops.fast\n"
         "import video_stab_tpu_torch.models.deepstab\n"
         "import video_stab_tpu_torch.models.flax_msgpack\n"
+        "import video_stab_tpu_torch.parallel\n"
+        "import video_stab_tpu_torch.parallel.multistream\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'jaxlib',\n"
         "                                            'video_stab_tpu.'))\n"

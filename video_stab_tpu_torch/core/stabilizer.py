@@ -28,6 +28,13 @@ that mirror the device's, and every index into a ring is a device tensor.
 The homography model adds the reads of its ``eigh`` and ``matrix_exp``
 (``motion/homography.py``), and every detector the convergence reads of
 its greedy selection (``ops/features.py``).
+
+``batched_*_fn`` are the same steps for N streams in lockstep, every
+tensor of the state with a leading N (``parallel/multistream.py``, the
+JAX package's vmapped serving step written out): each stage runs once a
+tick for all N streams, with the warm-up gate per stream on the device and
+one re-detect tick for the batch. ``check_supported_batched`` names the
+parameters they do not take yet.
 """
 
 from __future__ import annotations
@@ -50,7 +57,9 @@ from video_stab_tpu_torch.core.state import (
     state_to_numpy,
     stabilizer_state_init,
 )
-from video_stab_tpu_torch.kernels.warp import warp_affine_u8
+from video_stab_tpu_torch.kernels.warp import (warp_affine_u8,
+                                               warp_affine_u8_batched,
+                                               warp_homography_u8_batched)
 from video_stab_tpu_torch.models.deepstab import (predict_transform,
                                                   resolve_deepstab_weights)
 from video_stab_tpu_torch.motion.estimate import estimate_similarity_ransac
@@ -121,9 +130,38 @@ def check_supported(params: StabilizerParams) -> None:
             "not supported by video_stab_tpu_torch: " + "; ".join(todo))
 
 
+def check_supported_batched(params: StabilizerParams) -> None:
+    """Raise NotImplementedError, naming each field, for the parameters the
+    batched multi-stream step does not take yet (ROADMAP queue 1 item
+    11b); ``check_supported`` for the rest."""
+    check_supported(params)
+    todo = []
+    if params.enable_virtual_canvas:
+        todo.append("enable_virtual_canvas=True")
+    if params.border_type != "black":
+        todo.append(f"border_type={params.border_type}")
+    if params.border_size != 0:
+        todo.append(f"border_size={params.border_size}")
+    if params.crop_n_zoom:
+        todo.append("crop_n_zoom=True")
+    if params.feature_detector != "gftt":
+        todo.append(f"feature_detector={params.feature_detector}")
+    if params.drone_high_freq_mode:
+        todo.append("drone_high_freq_mode=True")
+    if params.motion_prediction:
+        todo.append("motion_prediction=True")
+    if params.aux_rotation_deg != 0.0:
+        todo.append(f"aux_rotation_deg={params.aux_rotation_deg}")
+    if todo:
+        raise NotImplementedError(
+            "not supported by the batched multi-stream step yet (ROADMAP "
+            "queue 1 item 11b): " + "; ".join(todo))
+
+
 def _analysis_gray(params: StabilizerParams, frame_f32: torch.Tensor
                    ) -> torch.Tensor:
-    """Full-res BGR (or an already-gray plane) -> analysis-resolution gray."""
+    """Full-res BGR (or an already-gray plane) -> analysis-resolution gray;
+    N streams' (N, H, W, 3) frames -> (N, Ha, Wa)."""
     gray = frame_f32 if frame_f32.dim() == 2 else bgr_to_gray(frame_f32)
     return resize_bilinear(gray, params.analysis_height,
                            params.analysis_width)
@@ -168,17 +206,22 @@ def _queue_frame(state: StabilizerState, frame_u8: torch.Tensor,
                  aux_roll) -> dict:
     """The queue fields after pushing frame (and its roll angle). The frame
     ring, the state's one large buffer, is written IN PLACE (the JAX
-    package donates it to the same effect)."""
-    q = state.frame_ring.shape[0]
-    slot = torch.remainder(state.n_frames, q).to(torch.int64).reshape(1)
+    package donates it to the same effect). N streams' (N, H, W, 3)
+    frames go to their (N, Q, H, W, 3) ring, each at its own slot, in one
+    copy."""
+    ring = state.frame_ring
+    q = ring.shape[-4]
+    slot = torch.remainder(state.n_frames, q).to(torch.int64).reshape(-1)
     aux_ring = state.aux_roll_ring
     if aux_roll is not None:
         aux = torch.as_tensor(aux_roll, dtype=torch.float32,
                               device=aux_ring.device).reshape(1)
         aux_ring = aux_ring.index_copy(0, slot, aux)
-    return dict(frame_ring=state.frame_ring.index_copy_(0, slot,
-                                                        frame_u8[None]),
-                n_frames=state.n_frames + 1,
+    if ring.dim() == 5:
+        slot = slot + torch.arange(ring.shape[0], device=ring.device) * q
+    ring.view(-1, *ring.shape[-3:]).index_copy_(
+        0, slot, frame_u8.reshape(-1, *ring.shape[-3:]))
+    return dict(frame_ring=ring, n_frames=state.n_frames + 1,
                 aux_roll_ring=aux_ring)
 
 
@@ -210,9 +253,10 @@ def to_full_resolution(params: StabilizerParams, frame_shape,
     host-to-device copy of S."""
     sxf = frame_shape[1] / params.analysis_width
     syf = frame_shape[0] / params.analysis_height
-    rows = torch.stack([h_mat[0] * sxf, h_mat[1] * syf, h_mat[2]])
-    return torch.stack([rows[:, 0] * (1.0 / sxf), rows[:, 1] * (1.0 / syf),
-                        rows[:, 2]], dim=1)
+    rows = torch.stack([h_mat[..., 0, :] * sxf, h_mat[..., 1, :] * syf,
+                        h_mat[..., 2, :]], dim=-2)
+    return torch.stack([rows[..., 0] * (1.0 / sxf),
+                        rows[..., 1] * (1.0 / syf), rows[..., 2]], dim=-1)
 
 
 def _lk_init_pts(params: StabilizerParams, state: StabilizerState,
@@ -256,35 +300,9 @@ def stabilizer_analyze_step_fn(params: StabilizerParams,
         gray = torch.where(state.starvation_counter > 2,
                            clahe(gray, clip_limit=2.0, tile_grid=8), gray)
 
-    if params.deep_stabilization and params.motion_model != "homography":
-        # The learned estimator in place of LK + RANSAC: the points are
-        # carried, nothing is an inlier and the generator draws nothing.
-        raw = predict_transform(state.deepstab, state.prev_gray, gray)
-        curr_pts, valid = state.prev_pts, state.prev_mask
-        inliers = torch.zeros_like(state.prev_mask)
-        est_ok = torch.ones((), dtype=torch.bool, device=gray.device)
-    else:
-        curr_pts, status, _err = lk_track(
-            state.prev_gray, gray, state.prev_pts, state.prev_mask,
-            win=params.lk_window, max_level=params.lk_levels,
-            iters=params.lk_iters,
-            init_pts=_lk_init_pts(params, state, gray))
-        valid = state.prev_mask & status
-        draws = None if ransac_draws is None else ransac_draws(valid.sum())
-        if params.motion_model == "homography":
-            h_mat, est_ok, inliers = estimate_homography_ransac(
-                state.prev_pts, curr_pts, valid, generator=state.key,
-                threshold=params.ransac_threshold,
-                n_hypotheses=params.ransac_hypotheses, draws=draws)
-            raw = log_homography(
-                to_full_resolution(params, frame_u8.shape, h_mat)).reshape(9)
-        else:
-            m, est_ok, inliers = estimate_similarity_ransac(
-                state.prev_pts, curr_pts, valid, generator=state.key,
-                threshold=params.ransac_threshold,
-                n_hypotheses=params.ransac_hypotheses, draws=draws)
-            raw = torch.stack([m[0, 2], m[1, 2],
-                               torch.atan2(m[1, 0], m[0, 0])])
+    raw, curr_pts, valid, inliers, est_ok = _estimate_motion(
+        params, state, gray, frame_u8.shape[-3:], ransac_draws,
+        _lk_init_pts(params, state, gray))
 
     # Drone high-frequency vibration chain: a similarity-space heuristic,
     # skipped by the homography model.
@@ -299,20 +317,77 @@ def stabilizer_analyze_step_fn(params: StabilizerParams,
             rot_lp_alpha=params.hf_rot_lp_alpha,
             horizon_lock=params.horizon_lock)
 
-    # Push raw transform + cumulative path into the rings.
+    tick = None if redetect_tick is None else int(redetect_tick)
+    return _finish_analyze(params, state._replace(hf=hf), frame_u8, gray,
+                           raw, curr_pts, valid, inliers, est_ok, tick,
+                           aux_roll)
+
+
+def _estimate_motion(params: StabilizerParams, state: StabilizerState,
+                     gray: torch.Tensor, frame_shape,
+                     ransac_draws: RansacDraws,
+                     init_pts: Optional[torch.Tensor]):
+    """The frame-to-frame motion from the previous analysis gray to
+    ``gray``: (raw transform (C,), curr_pts, valid, inliers, estimate_ok),
+    by LK + RANSAC, or with ``deep_stabilization`` (similarity) the
+    network, which carries the points, marks no inlier and draws nothing.
+    For N streams every input and result has a leading N."""
+    if params.deep_stabilization and params.motion_model != "homography":
+        raw = predict_transform(state.deepstab, state.prev_gray, gray)
+        inliers = torch.zeros_like(state.prev_mask)
+        est_ok = torch.ones(state.prev_mask.shape[:-1], dtype=torch.bool,
+                            device=gray.device)
+        return raw, state.prev_pts, state.prev_mask, inliers, est_ok
+    curr_pts, status, _err = lk_track(
+        state.prev_gray, gray, state.prev_pts, state.prev_mask,
+        win=params.lk_window, max_level=params.lk_levels,
+        iters=params.lk_iters, init_pts=init_pts)
+    valid = state.prev_mask & status
+    draws = None if ransac_draws is None else \
+        ransac_draws(valid.sum(dim=-1))
+    if params.motion_model == "homography":
+        h_mat, est_ok, inliers = estimate_homography_ransac(
+            state.prev_pts, curr_pts, valid, generator=state.key,
+            threshold=params.ransac_threshold,
+            n_hypotheses=params.ransac_hypotheses, draws=draws)
+        raw = log_homography(
+            to_full_resolution(params, frame_shape, h_mat)).flatten(-2)
+    else:
+        m, est_ok, inliers = estimate_similarity_ransac(
+            state.prev_pts, curr_pts, valid, generator=state.key,
+            threshold=params.ransac_threshold,
+            n_hypotheses=params.ransac_hypotheses, draws=draws)
+        raw = torch.stack([m[..., 0, 2], m[..., 1, 2],
+                           torch.atan2(m[..., 1, 0], m[..., 0, 0])], dim=-1)
+    return raw, curr_pts, valid, inliers, est_ok
+
+
+def _finish_analyze(params: StabilizerParams, state: StabilizerState,
+                    frame_u8: torch.Tensor, gray: torch.Tensor,
+                    raw: torch.Tensor, curr_pts: torch.Tensor,
+                    valid: torch.Tensor, inliers: torch.Tensor,
+                    est_ok: torch.Tensor, tick: Optional[int], aux_roll
+                    ) -> tuple[StabilizerState, dict]:
+    """The analyze step after the estimate: push the raw transform and the
+    cumulative path into the rings, count starvation, re-detect features
+    when ``tick`` (None: ``n_path`` read on the host) is a multiple of
+    ``redetect_interval``, queue the frame; and the step's metrics. For N
+    streams every tensor has a leading N and ``tick`` is the batch's."""
     n = state.n_path
-    prev_path = torch.where(n > 0, ring_get(state.path_ring, n - 1),
+    started = (n > 0)[..., None]
+    prev_path = torch.where(started, ring_get(state.path_ring, n - 1),
                             torch.zeros_like(raw))
-    new_path = torch.where(n > 0, prev_path + raw, raw)
+    new_path = torch.where(started, prev_path + raw, raw)
     trans_ring = ring_push(state.trans_ring, n, raw)
     path_ring = ring_push(state.path_ring, n, new_path)
     n = n + 1
 
-    n_tracked = valid.to(torch.int32).sum()
+    n_tracked = valid.to(torch.int32).sum(dim=-1)
     starvation = torch.where(n_tracked < 40, state.starvation_counter + 1,
                              torch.zeros_like(state.starvation_counter))
 
-    tick = int(n) if redetect_tick is None else int(redetect_tick)
+    if tick is None:
+        tick = int(n)
     if tick % params.redetect_interval == 0:
         prev_pts, prev_mask = _detect_features(params, gray, redetect=True)
     else:
@@ -320,12 +395,12 @@ def stabilizer_analyze_step_fn(params: StabilizerParams,
 
     new_state = state._replace(
         prev_gray=gray, prev_pts=prev_pts, prev_mask=prev_mask,
-        trans_ring=trans_ring, path_ring=path_ring, n_path=n, hf=hf,
+        trans_ring=trans_ring, path_ring=path_ring, n_path=n,
         starvation_counter=starvation,
         **_queue_frame(state, frame_u8, aux_roll))
     metrics = {
         "n_tracked": n_tracked,
-        "n_inliers": inliers.to(torch.int32).sum(),
+        "n_inliers": inliers.to(torch.int32).sum(dim=-1),
         "estimate_ok": est_ok,
         "transform": raw,
     }
@@ -359,21 +434,25 @@ def _smoothed_at_emit(params: StabilizerParams, state: StabilizerState,
                                  state.path_ring.device)
         return state, gaussian_filter_emit(state.path_ring, state.n_path, e,
                                            kernel)
+    # (N streams: e (N,); ``first`` broadcast over each state's trailing
+    # axes.)
     if method == "butterworth":
         cutoff = jitter_frequency_cutoff(params.jitter_frequency)
         z = ring_get(state.path_ring, e)
-        first = e == 0
+        first = (e == 0)[..., None]
         bst, sm = butterworth_cascade(state.butter_state, z, cutoff, 4)
-        bst = torch.where(first, z.expand(4, -1), bst)
+        bst = torch.where(first[..., None], z[..., None, :].expand_as(bst),
+                          bst)
         return state._replace(butter_state=bst), torch.where(first, z, sm)
     if method == "kalman":
         z = ring_get(state.path_ring, e)
-        first = e == 0
+        first = (e == 0)[..., None]
         st, sm = kalman_step({"x": state.kalman_x, "p": state.kalman_p}, z)
         st0 = kalman_init(z)
         return state._replace(
-            kalman_x=torch.where(first, st0["x"], st["x"]),
-            kalman_p=torch.where(first, st0["p"], st["p"])), \
+            kalman_x=torch.where(first[..., None], st0["x"], st["x"]),
+            kalman_p=torch.where(first[..., None, None], st0["p"],
+                                 st["p"])), \
             torch.where(first, z, sm)
     # Box filter with the adaptive radius, re-clamped to the mode's band.
     ar = adaptive_radius(state.path_ring, state.n_path,
@@ -388,47 +467,21 @@ def stabilizer_emit_step_fn(params: StabilizerParams, state: StabilizerState
     """Emit the oldest queued frame, stabilized (applyNextSmoothTransform)."""
     check_supported(params)
     dev = state.trans_ring.device
-    e = state.emit_idx
-    has_transform = e < state.n_path
-    zeros = torch.zeros(state.trans_ring.shape[1], dtype=torch.float32,
-                        device=dev)
-    raw = torch.where(has_transform, ring_get(state.trans_ring, e), zeros)
-    e_path = torch.minimum(e, state.n_path - 1)
-    path_e = ring_get(state.path_ring, e_path)
-
-    state, smoothed = _smoothed_at_emit(params, state, e_path)
-    diff = smoothed - path_e
+    state, e, has_transform, raw, diff = _emit_inputs(params, state)
 
     q = state.frame_ring.shape[0]
     slot = torch.remainder(e, q).to(torch.int64).reshape(1)
     frame_u8 = state.frame_ring.index_select(0, slot)[0]
     if params.motion_model == "homography":
-        return _emit_homography(params, state, frame_u8, has_transform,
-                                torch.where(has_transform, raw + diff, zeros))
-
-    # Motion-intent correction scaling.
-    intent = analyze_motion_intent(state.trans_ring, state.n_path, raw, e)
-    diff = diff * intent_correction_scale(intent, raw, e)
-
-    t_smooth = torch.where(has_transform, raw + diff, zeros)
-    dx, dy = t_smooth[0], t_smooth[1]
-    da = torch.zeros_like(t_smooth[2]) if params.horizon_lock \
-        else t_smooth[2]
-    if params.full_res_corrections:
-        sxf = state.frame_ring.shape[2] / params.analysis_width
-        syf = state.frame_ring.shape[1] / params.analysis_height
-        if sxf != 1.0 or syf != 1.0:
-            dx = dx * float(np.float32(sxf))
-            dy = dy * float(np.float32(syf))
-    t_mat = similarity_matrix(dx, dy, da)
-    # Envelope observability: the JAX warp clamps (degrades) outside its
-    # static envelope; the count stays comparable although K1 is exact.
-    env_rad = math.radians(params.warp_envelope_deg)
-    exceeded = has_transform & (
-        (da.abs() > env_rad)
-        | (torch.maximum(dx.abs(), dy.abs()) > WARP_MAX_SHIFT))
+        return _emit_homography(
+            params, state, frame_u8, has_transform,
+            torch.where(has_transform, raw + diff, torch.zeros_like(raw)))
 
     h, w = frame_u8.shape[0], frame_u8.shape[1]
+    dx, dy, da, exceeded = _similarity_correction(params, state, e,
+                                                  has_transform, raw, diff,
+                                                  (h, w))
+    t_mat = similarity_matrix(dx, dy, da)
     m_use = t_mat
     if params.aux_rotation_deg > 0.0:
         # Fused-chain roll: compose correction o roll-rotation about the
@@ -461,6 +514,65 @@ def stabilizer_emit_step_fn(params: StabilizerParams, state: StabilizerState
     return new_state, out_u8
 
 
+def _emit_inputs(params: StabilizerParams, state: StabilizerState):
+    """At the emit cursor e: (state with the smoother advanced, e,
+    has_transform, the raw transform (zero without one), smoothed path
+    minus path). For N streams each has a leading N."""
+    e = state.emit_idx
+    has_transform = e < state.n_path
+    raw = ring_get(state.trans_ring, e)
+    raw = torch.where(has_transform[..., None], raw, torch.zeros_like(raw))
+    e_path = torch.minimum(e, state.n_path - 1)
+    path_e = ring_get(state.path_ring, e_path)
+    state, smoothed = _smoothed_at_emit(params, state, e_path)
+    return state, e, has_transform, raw, smoothed - path_e
+
+
+def _similarity_correction(params: StabilizerParams, state: StabilizerState,
+                           e: torch.Tensor, has_transform: torch.Tensor,
+                           raw: torch.Tensor, diff: torch.Tensor, frame_hw
+                           ) -> tuple[torch.Tensor, ...]:
+    """The similarity emit's correction (dx, dy, da): the smoothing diff
+    scaled by the motion intent, added to the raw transform, with
+    ``horizon_lock`` and ``full_res_corrections``; and whether it leaves
+    the JAX warp's static envelope. For N streams each has a leading N."""
+    intent = analyze_motion_intent(state.trans_ring, state.n_path, raw, e)
+    diff = diff * intent_correction_scale(intent, raw, e)[..., None]
+    t_smooth = torch.where(has_transform[..., None], raw + diff,
+                           torch.zeros_like(raw))
+    dx, dy = t_smooth[..., 0], t_smooth[..., 1]
+    da = torch.zeros_like(t_smooth[..., 2]) if params.horizon_lock \
+        else t_smooth[..., 2]
+    if params.full_res_corrections:
+        sxf = frame_hw[1] / params.analysis_width
+        syf = frame_hw[0] / params.analysis_height
+        if sxf != 1.0 or syf != 1.0:
+            dx = dx * float(np.float32(sxf))
+            dy = dy * float(np.float32(syf))
+    # Envelope observability: the JAX warp clamps (degrades) outside its
+    # static envelope; the count stays comparable although K1 is exact.
+    env_rad = math.radians(params.warp_envelope_deg)
+    exceeded = has_transform & (
+        (da.abs() > env_rad)
+        | (torch.maximum(dx.abs(), dy.abs()) > WARP_MAX_SHIFT))
+    return dx, dy, da, exceeded
+
+
+def _homography_exceeded(params: StabilizerParams, h_corr: torch.Tensor,
+                         has_transform: torch.Tensor) -> torch.Tensor:
+    """Whether a (..., 3, 3) correction leaves the JAX projective warp's
+    static envelope (rotation / shear slope, shift, projective budget),
+    outside which that warp clamps; the count stays comparable although K2
+    is exact."""
+    s_env = abs(math.sin(math.radians(params.warp_envelope_deg)))
+    return has_transform & (
+        (torch.maximum(h_corr[..., 0, 2].abs(), h_corr[..., 1, 2].abs())
+         > WARP_MAX_SHIFT)
+        | (h_corr[..., 0, 1].abs() > s_env) | (h_corr[..., 1, 0].abs() > s_env)
+        | (h_corr[..., 2, 0].abs() > PROJ_BUDGET_DEFAULT)
+        | (h_corr[..., 2, 1].abs() > PROJ_BUDGET_DEFAULT))
+
+
 def _emit_canvas(params: StabilizerParams, state: StabilizerState,
                  frame_u8: torch.Tensor, t_smooth: torch.Tensor
                  ) -> tuple[StabilizerState, torch.Tensor]:
@@ -491,16 +603,7 @@ def _emit_homography(params: StabilizerParams, state: StabilizerState,
     (K2). Motion-intent scaling is a similarity-space heuristic and is
     skipped, as in the JAX package."""
     h_corr = exp_homography(t_smooth.reshape(3, 3))
-    # Envelope observability: the JAX projective warp clamps outside its
-    # static envelope (rotation/shear slope, shift, projective budget); the
-    # count stays comparable although K2 is exact.
-    s_env = abs(math.sin(math.radians(params.warp_envelope_deg)))
-    exceeded = has_transform & (
-        (torch.maximum(h_corr[0, 2].abs(), h_corr[1, 2].abs())
-         > WARP_MAX_SHIFT)
-        | (h_corr[0, 1].abs() > s_env) | (h_corr[1, 0].abs() > s_env)
-        | (h_corr[2, 0].abs() > PROJ_BUDGET_DEFAULT)
-        | (h_corr[2, 1].abs() > PROJ_BUDGET_DEFAULT))
+    exceeded = _homography_exceeded(params, h_corr, has_transform)
     state, out_u8 = _warp_bordered(
         params, state, frame_u8,
         lambda img: warp_perspective_fast(img, h_corr,
@@ -597,15 +700,26 @@ def stabilizer_emit_gated_fn(params: StabilizerParams, state: StabilizerState
     emission-mutated fields) is held back and ``ready`` is False."""
     ready = (state.n_frames - state.emit_idx) >= params.effective_radius
     new_state, out = stabilizer_emit_step_fn(params, state)
+    return _hold_unready(params, state, new_state, ready), out, ready
+
+
+def _hold_unready(params: StabilizerParams, state: StabilizerState,
+                  new_state: StabilizerState, ready: torch.Tensor
+                  ) -> StabilizerState:
+    """new_state with the emission-mutated fields of every stream that is
+    not ``ready`` held at their values in ``state``, on the device."""
     names = ("emit_idx", "kalman_x", "kalman_p", "butter_state",
              "fade_history", "fade_count", "envelope_exceeded")
     if params.enable_virtual_canvas:
         names += ("canvas", "canvas_weight", "canvas_scale")
-    held = {name: torch.where(ready, getattr(new_state, name),
-                              getattr(state, name))
-            for name in names}
-    new_state = new_state._replace(**held)
-    return new_state, out, ready
+
+    def hold(new, old):
+        r = ready.reshape(ready.shape + (1,) * (new.dim() - ready.dim()))
+        return torch.where(r, new, old)
+
+    return new_state._replace(**{
+        name: hold(getattr(new_state, name), getattr(state, name))
+        for name in names})
 
 
 def stabilizer_step_metrics_fn(params: StabilizerParams,
@@ -637,6 +751,94 @@ def stabilizer_step_fn(params: StabilizerParams, state: StabilizerState,
         params, state, frame_u8, redetect_tick=redetect_tick,
         ransac_draws=ransac_draws)
     return state, out, ready
+
+
+def batched_init_step_fn(params: StabilizerParams, state: StabilizerState,
+                         frames_u8: torch.Tensor) -> StabilizerState:
+    """``stabilizer_init_step_fn`` for N streams: (N, H, W, 3) frames, one
+    GFTT detection (one K3 launch) for all N."""
+    check_supported_batched(params)
+    gray = _analysis_gray(params, frames_u8.float())
+    pts, mask = _detect_features(
+        params, gray, roi=_roi(params, frames_u8.shape[-3:],
+                               frames_u8.device))
+    return state._replace(prev_gray=gray, prev_pts=pts, prev_mask=mask,
+                          **_queue_frame(state, frames_u8, None))
+
+
+def batched_analyze_step_fn(params: StabilizerParams, state: StabilizerState,
+                            frames_u8: torch.Tensor, redetect_tick: int,
+                            ransac_draws: RansacDraws = None,
+                            ) -> tuple[StabilizerState, dict]:
+    """``stabilizer_analyze_step_fn`` for N streams: the analysis grays, LK
+    (one K6 launch for all N * P points) and RANSAC, or the network on the
+    N gray pairs in one forward pass, on (N, ...) tensors. Each stream
+    draws RANSAC's hypotheses from its own generator (``state.key[i]``),
+    or ``ransac_draws`` maps the (N,) valid counts to (N, K, width)
+    draws. ``redetect_tick`` is the batch's one host counter (the JAX
+    package's unbatched tick): every stream re-detects on the same
+    ticks. A stream whose slot was just reset analyzes against a zero gray
+    with no valid point: its estimate is not ok and its transform zero."""
+    check_supported_batched(params)
+    gray = _analysis_gray(params, frames_u8.float())
+    raw, curr_pts, valid, inliers, est_ok = _estimate_motion(
+        params, state, gray, frames_u8.shape[-3:], ransac_draws, None)
+    return _finish_analyze(params, state, frames_u8, gray, raw, curr_pts,
+                           valid, inliers, est_ok, int(redetect_tick), None)
+
+
+def batched_emit_step_fn(params: StabilizerParams, state: StabilizerState
+                         ) -> tuple[StabilizerState, torch.Tensor]:
+    """``stabilizer_emit_step_fn`` for N streams: every stream's smoothed
+    correction at its own emit cursor, then one warp launch (K1, or K2 for
+    the homography model) that reads each stream's queued frame in place
+    in the (N, Q, H, W, 3) ring at its slot, a device table: no frame is
+    gathered and no slot read on the host. Returns (N, H, W, 3) u8."""
+    check_supported_batched(params)
+    state, e, has_transform, raw, diff = _emit_inputs(params, state)
+    ring = state.frame_ring
+    slots = torch.remainder(e, ring.shape[1]).to(torch.int32)
+    if params.motion_model == "homography":
+        h_corr = exp_homography(torch.where(
+            has_transform[:, None], raw + diff,
+            torch.zeros_like(raw)).reshape(-1, 3, 3))
+        exceeded = _homography_exceeded(params, h_corr, has_transform)
+        out = warp_homography_u8_batched(ring, slots, h_corr,
+                                         border_mode=BORDER_CONSTANT)
+    else:
+        dx, dy, da, exceeded = _similarity_correction(
+            params, state, e, has_transform, raw, diff, ring.shape[2:4])
+        out = warp_affine_u8_batched(ring, slots,
+                                     similarity_matrix(dx, dy, da),
+                                     border_mode=BORDER_CONSTANT)
+    return state._replace(
+        emit_idx=e + 1,
+        envelope_exceeded=state.envelope_exceeded
+        + exceeded.to(torch.int32)), out
+
+
+def batched_emit_gated_fn(params: StabilizerParams, state: StabilizerState
+                          ) -> tuple[StabilizerState, torch.Tensor,
+                                     torch.Tensor]:
+    """``stabilizer_emit_gated_fn`` for N streams: the warm-up gate per
+    stream, on the device; ``ready`` is (N,) bool."""
+    ready = (state.n_frames - state.emit_idx) >= params.effective_radius
+    new_state, out = batched_emit_step_fn(params, state)
+    return _hold_unready(params, state, new_state, ready), out, ready
+
+
+def batched_step_metrics_fn(params: StabilizerParams, state: StabilizerState,
+                            frames_u8: torch.Tensor, redetect_tick: int,
+                            ransac_draws: RansacDraws = None,
+                            ) -> tuple[StabilizerState, torch.Tensor,
+                                       torch.Tensor, dict]:
+    """``stabilizer_step_metrics_fn`` for N streams: the batched analyze
+    and gated emit of one tick; the metrics are (N, ...) device tensors."""
+    state, metrics = batched_analyze_step_fn(
+        params, state, frames_u8, redetect_tick, ransac_draws=ransac_draws)
+    state, out, ready = batched_emit_gated_fn(params, state)
+    metrics["envelope_exceeded"] = state.envelope_exceeded
+    return state, out, ready, metrics
 
 
 def as_device_frame(frame, device: torch.device) -> torch.Tensor:

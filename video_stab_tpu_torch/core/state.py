@@ -21,12 +21,21 @@ more, ``key_state`` and ``key_device``: the generator's position in its
 stream and the kind of device it belongs to, so that a saved stream
 resumes its draws where it left off.
 
+N streams served in lockstep (``parallel/multistream.py``) keep one
+``StabilizerState`` whose tensors have a leading N, the (N, Q, H, W, 3)
+frame ring among them, whose ``key`` is a tuple of N generators (stream i
+seeded from ``params.seed + i``) and whose ``deepstab`` is one network
+shared by the streams. ``batched_state_from_numpy`` /
+``batched_state_to_numpy`` convert it from and to the JAX package's
+batched tree (every leaf stacked, ``key`` (N, 2) uint32).
+
 ``LegacyState`` is the legacy deterministic stabilizer's state
 (``core/legacy.py``), field for field with the JAX package's.
 """
 
 from __future__ import annotations
 
+from collections.abc import Mapping
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -219,6 +228,79 @@ def state_to_numpy(state: StabilizerState) -> dict:
         else:
             out[name] = v
     return out
+
+
+def batched_state_from_numpy(np_state: Any, device: torch.device
+                             ) -> StabilizerState:
+    """The batched state of N streams from a tree of numpy arrays: the JAX
+    package's batched ``StabilizerState`` (every leaf with a leading N,
+    ``key`` (N, 2) uint32, the deep network's flax parameters stacked per
+    stream) or this package's ``batched_state_to_numpy`` dict. Stream i's
+    generator is seeded from key[i] and, from a tree of this package saved
+    on the same kind of device, set to its saved position
+    (``key_state[i]``)."""
+    device = torch.device(device)
+    fields = {}
+    for name in StabilizerState._fields:
+        value = _field(np_state, name)
+        if name == "deepstab":
+            if value is not None and len(value) and "params" in value:
+                value = _first_of_stack(value)      # JAX: stacked per stream
+            fields[name] = _deepstab_from_tree(value, device)
+        elif name == "hf":
+            if isinstance(value, dict):
+                value = [value[f] for f in HFState._fields]
+            fields[name] = HFState(*(_tensor(v, device) for v in value))
+        elif name == "key":
+            keys = np.asarray(value)
+            saved = _field(np_state, "key_state")
+            same = saved is not None and \
+                str(_field(np_state, "key_device")) == device.type
+            gens = []
+            for i in range(keys.shape[0]):
+                gen = _generator(_key_seed(keys[i]), device)
+                if same:
+                    gen.set_state(torch.from_numpy(
+                        np.array(saved[i], dtype=np.uint8)))
+                gens.append(gen)
+            fields[name] = tuple(gens)
+        else:
+            fields[name] = _tensor(value, device).contiguous()
+    return StabilizerState(**fields)
+
+
+def batched_state_to_numpy(state: StabilizerState) -> dict:
+    """The batched state as a dict of numpy arrays with the JAX package's
+    field names, each with a leading N: ``key`` (N, 2) uint32 from each
+    generator's initial seed, ``key_state`` (N, S) uint8 the generators'
+    positions, ``key_device`` their device type; ``deepstab`` the shared
+    network's ``state_dict`` (empty without deep stabilization)."""
+    out = {}
+    for name in StabilizerState._fields:
+        v = getattr(state, name)
+        if name == "key":
+            seeds = [g.initial_seed() for g in v]
+            out[name] = np.asarray([[(sd >> 32) & 0xFFFFFFFF,
+                                     sd & 0xFFFFFFFF] for sd in seeds],
+                                   np.uint32)
+            out["key_state"] = np.stack(
+                [g.get_state().cpu().numpy() for g in v])
+            out["key_device"] = v[0].device.type if v else "cpu"
+        elif name == "hf":
+            out[name] = HFState(*(t.detach().cpu().numpy() for t in v))
+        elif name == "deepstab":
+            out[name] = {} if isinstance(v, tuple) else {
+                k: t.detach().cpu().numpy() for k, t in v.state_dict().items()}
+        else:
+            out[name] = v.detach().cpu().numpy()
+    return out
+
+
+def _first_of_stack(tree: Any) -> Any:
+    """Every array leaf of a nested dict at index 0 of its leading axis."""
+    if isinstance(tree, Mapping):
+        return {k: _first_of_stack(v) for k, v in tree.items()}
+    return np.asarray(tree)[0]
 
 
 def _deepstab_from_tree(tree: Any, device: torch.device) -> Any:

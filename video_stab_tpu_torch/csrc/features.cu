@@ -48,6 +48,10 @@
 // column w - 1 the right neighbour is the lane to the left, and the same
 // for rows with the lane's own registers. A one-pixel axis is its own
 // neighbour.
+//
+// Streams: the multi-stream step (video_stab_tpu_torch/parallel/) detects
+// on N streams' analysis grays in one launch, blockIdx.z the stream, with
+// gray, response and peak mask (N, h, w). vs_corner_response is N = 1.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -119,6 +123,10 @@ corner_strip_kernel(const float* __restrict__ img, int h, int w, float scale,
   const int xs = (blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) * kStripW;
   const int ys = blockIdx.y * kRows;
   if (xs >= w) return;                       // the whole warp
+  const size_t plane = static_cast<size_t>(blockIdx.z) * h * w;
+  img += plane;
+  resp_out += plane;
+  peak_out += plane;
 #ifdef VS_CYCLES
   const long long t_start = clock64();
 #endif
@@ -228,18 +236,29 @@ corner_strip_kernel(const float* __restrict__ img, int h, int w, float scale,
 
 }  // namespace
 
-// gray: (h, w) f32; resp: (h, w) f32; peak: (h, w) bool. One launch on
-// ``stream``. Returns the cudaError_t of the launch (0 on success).
-extern "C" int vs_corner_response(const void* gray, int h, int w, float scale,
-                                  void* resp, void* peak, void* stream) {
-  if (h <= 0 || w <= 0) return static_cast<int>(cudaErrorInvalidValue);
+// gray: (n, h, w) f32; resp: (n, h, w) f32; peak: (n, h, w) bool. One
+// launch on ``stream``. Returns the cudaError_t of the launch (0 on
+// success).
+extern "C" int vs_corner_response_batched(const void* gray, int n, int h,
+                                          int w, float scale, void* resp,
+                                          void* peak, void* stream) {
+  if (h <= 0 || w <= 0 || n <= 0 || n > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int strip = kStripW * kWarpsPerBlock;
-  const dim3 grid((w + strip - 1) / strip, (h + kRows - 1) / kRows);
+  const dim3 grid((w + strip - 1) / strip, (h + kRows - 1) / kRows, n);
   corner_strip_kernel<<<grid, 32 * kWarpsPerBlock, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(gray), h, w, scale,
       static_cast<float*>(resp), static_cast<uint8_t*>(peak));
   return static_cast<int>(cudaGetLastError());
+}
+
+// One frame: gray, resp and peak (h, w).
+extern "C" int vs_corner_response(const void* gray, int h, int w, float scale,
+                                  void* resp, void* peak, void* stream) {
+  return vs_corner_response_batched(gray, 1, h, w, scale, resp, peak,
+                                    stream);
 }
 
 #ifdef VS_CYCLES

@@ -73,6 +73,15 @@
 // A TMA tile load would need a tensor map encoded on the host for each
 // plane and call; it was not tried: a slab is at most 16 KB, and cp.async
 // already takes the copies off the threads' registers.
+//
+// Streams: the multi-stream step (video_stab_tpu_torch/parallel/) tracks
+// N streams' points over N pyramids in one launch. The grid is (points,
+// streams), blockIdx.y the stream: each level's planes are N contiguous
+// (3, h, w) stacks and (h, w) planes, a stream's a fixed stride from the
+// level's base, and the point arrays are (N, P, ...). One stream's 200
+// blocks fill under two of the 132 SMs' worth of the card at a time; N
+// streams' N * 200 blocks run side by side, so the launch still ends when
+// the slowest point of any stream ends. vs_lk_track is the N = 1 case.
 
 #include <cuda_runtime.h>
 
@@ -118,6 +127,14 @@ struct Planes {
   int h[kMaxLevels];
   int w[kMaxLevels];
 };
+
+// Stream blockIdx.y's plane of a level whose base holds N stacks of
+// ``planes`` (h, w) planes.
+__device__ __forceinline__ const float* stream_plane(const float* base,
+                                                     int planes, int h,
+                                                     int w) {
+  return base + static_cast<size_t>(blockIdx.y) * planes * h * w;
+}
 
 // Sum over the warp; every lane gets the same bits (a + b == b + a).
 __device__ __forceinline__ float warp_sum(float v) {
@@ -296,7 +313,7 @@ lk_track_kernel(Planes pl, int n_levels, const float* __restrict__ prev_pts,
   long long cycles[kCycleSlots] = {};
 #endif
   VS_TICK(t_start);
-  const int q = blockIdx.x;
+  const int q = blockIdx.y * gridDim.x + blockIdx.x;   // (stream, point)
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int tplane = (win + 1) * kTStride;
@@ -338,7 +355,8 @@ lk_track_kernel(Planes pl, int n_levels, const float* __restrict__ prev_pts,
         floorf(__fsub_rn(__fmul_rn(py, lscale), half)), pl.h[level]);
     const int x0 = origin_index(
         floorf(__fsub_rn(__fmul_rn(px, lscale), half)), pl.w[level]);
-    stage<3>(pl.prev[level], pl.h[level] * pl.w[level], pl.h[level],
+    stage<3>(stream_plane(pl.prev[level], 3, pl.h[level], pl.w[level]),
+             pl.h[level] * pl.w[level], pl.h[level],
              pl.w[level], y0, x0, win + 1, smem + level * 3 * tplane, tplane,
              kTStride, lane, 32);
   }
@@ -348,7 +366,8 @@ lk_track_kernel(Planes pl, int n_levels, const float* __restrict__ prev_pts,
     VS_TICK(t_level);
     const int h = pl.h[level];
     const int w = pl.w[level];
-    const float* __restrict__ cv = pl.curr[level];
+    const float* __restrict__ cv = stream_plane(pl.curr[level], 1, h, w);
+    const float* const pv = stream_plane(pl.prev[level], 3, h, w);
 
     // The search window moves inside the round's slab (s_c x s_c, s_c =
     // win + 1 + 2 * drift, corner (cy0, cx0) in the plane); staged is a
@@ -390,7 +409,7 @@ lk_track_kernel(Planes pl, int n_levels, const float* __restrict__ prev_pts,
     for (int k = 0; k < kPer; ++k) {
       // The three planes of a level are staged alike: one column shift.
       const float* s = smem + level * 3 * tplane + toff[k] +
-                       max(slab_shift(pl.prev[level], w, tx0, win + 1), 0);
+                       max(slab_shift(pv, w, tx0, win + 1), 0);
       blend_run(s, kTStride, nv[k], tty, ttx, iw[k]);
       blend_run(s + tplane, kTStride, nv[k], tty, ttx, dxw[k]);
       blend_run(s + 2 * tplane, kTStride, nv[k], tty, ttx, dyw[k]);
@@ -554,7 +573,8 @@ size_t shared_bytes(int n_levels, int win) {
 template <int kPer>
 cudaError_t launch(Planes pl, int n_levels, const float* pts,
                    const unsigned char* mask, const float* init, int n,
-                   int win, int iters, float eps2, float min_eig_thresh,
+                   int n_streams, int win, int iters, float eps2,
+                   float min_eig_thresh,
                    float* out, unsigned char* status, float* err, int* steps,
                    cudaStream_t stream) {
   // Above 48 KB (deep pyramids with wide windows) a kernel has to opt in.
@@ -562,29 +582,33 @@ cudaError_t launch(Planes pl, int n_levels, const float* pts,
       lk_track_kernel<kPer>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(shared_bytes(kMaxLevels, kMaxWin)));
   if (opted != cudaSuccess) return opted;
-  lk_track_kernel<kPer><<<n, kThreads, shared_bytes(n_levels, win), stream>>>(
-      pl, n_levels, pts, mask, init, win, iters, eps2, min_eig_thresh, out,
-      status, err, steps);
+  const dim3 grid(n, n_streams);
+  lk_track_kernel<kPer><<<grid, kThreads, shared_bytes(n_levels, win),
+                          stream>>>(pl, n_levels, pts, mask, init, win,
+                                    iters, eps2, min_eig_thresh, out, status,
+                                    err, steps);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // planes: host array of 2 * n_levels device pointers, per level the
-// (3, h, w) prev stack [value, d/dx, d/dy] then the (h, w) curr plane, all
-// f32 with bfloat16 values; sizes: host array of 2 * n_levels ints (h, w).
-// prev_pts, init_pts (may be null), out_pts: (n, 2) f32 (x, y); mask,
-// status: (n,) bool; err: (n,) f32; steps (may be null): (n,) i32, the
-// Newton steps each point ran. eps2 = eps * eps. Returns the cudaError_t
-// of the launch (0 on success).
-extern "C" int vs_lk_track(const void* planes, const void* sizes,
-                           int n_levels, const void* prev_pts,
-                           const void* mask, const void* init_pts, int n,
-                           int win, int iters, float eps2,
-                           float min_eig_thresh, void* out_pts, void* status,
-                           void* err, void* steps, void* stream) {
-  if (n_levels < 1 || n_levels > kMaxLevels || n <= 0 || win < 2 ||
-      win > kMaxWin || iters < 0) {
+// (n_streams, 3, h, w) prev stacks [value, d/dx, d/dy] then the
+// (n_streams, h, w) curr planes, all f32 with bfloat16 values; sizes: host
+// array of 2 * n_levels ints (h, w). prev_pts, init_pts (may be null),
+// out_pts: (n_streams, n, 2) f32 (x, y); mask, status: (n_streams, n)
+// bool; err: (n_streams, n) f32; steps (may be null): (n_streams, n) i32,
+// the Newton steps each point ran. eps2 = eps * eps. Returns the
+// cudaError_t of the launch (0 on success).
+extern "C" int vs_lk_track_batched(const void* planes, const void* sizes,
+                                   int n_levels, const void* prev_pts,
+                                   const void* mask, const void* init_pts,
+                                   int n, int n_streams, int win, int iters,
+                                   float eps2, float min_eig_thresh,
+                                   void* out_pts, void* status, void* err,
+                                   void* steps, void* stream) {
+  if (n_levels < 1 || n_levels > kMaxLevels || n <= 0 || n_streams <= 0 ||
+      n_streams > 65535 || win < 2 || win > kMaxWin || iters < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const void* const* ptrs = static_cast<const void* const*>(planes);
@@ -606,10 +630,23 @@ extern "C" int vs_lk_track(const void* planes, const void* sizes,
   return static_cast<int>(go(
       pl, n_levels, static_cast<const float*>(prev_pts),
       static_cast<const unsigned char*>(mask),
-      static_cast<const float*>(init_pts), n, win, iters, eps2,
+      static_cast<const float*>(init_pts), n, n_streams, win, iters, eps2,
       min_eig_thresh, static_cast<float*>(out_pts),
       static_cast<unsigned char*>(status), static_cast<float*>(err),
       static_cast<int*>(steps), static_cast<cudaStream_t>(stream)));
+}
+
+// One stream: the planes (3, h, w) and (h, w), the points (n, ...).
+extern "C" int vs_lk_track(const void* planes, const void* sizes,
+                           int n_levels, const void* prev_pts,
+                           const void* mask, const void* init_pts, int n,
+                           int win, int iters, float eps2,
+                           float min_eig_thresh, void* out_pts, void* status,
+                           void* err, void* steps, void* stream) {
+  return vs_lk_track_batched(planes, sizes, n_levels, prev_pts, mask,
+                             init_pts, n, 1, win, iters, eps2,
+                             min_eig_thresh, out_pts, status, err, steps,
+                             stream);
 }
 
 #ifdef VS_CYCLES

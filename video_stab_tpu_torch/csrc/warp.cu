@@ -54,6 +54,16 @@
 //   in one add (both paths).
 // Either way each pixel's value is the same.
 //
+// Streams: the multi-stream emit (video_stab_tpu_torch/parallel/) warps N
+// streams' queued frames in one launch, blockIdx.z the stream. The source
+// is the streams' (N, Q, H, W, C) frame ring with a device int32 (N,)
+// table of the slot each stream emits, so stream n reads frame
+// ring + (n * Q + slot[n]) * H * W * C in place: no frame is gathered out
+// of the ring first, and no slot is read on the host. M^-1 is (N, 6) or
+// (N, 9), the output (N, oh, ow, C). The single-frame entries are the
+// N = 1, Q = 1 case with no slot table, compiled without the stream
+// offsets (kBatched false).
+//
 // The coordinate and blend arithmetic uses __fmul_rn/__fadd_rn, which are
 // never contracted into FMAs, so the result is the same float32 value the
 // plain PyTorch version (video_stab_tpu_torch/kernels/warp.py) computes,
@@ -291,13 +301,22 @@ __device__ __forceinline__ void pixel_general(
   }
 }
 
-template <int C, int kMode, bool kProjective>
+template <int C, int kMode, bool kProjective, bool kBatched>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
-warp_tile_kernel(const uint8_t* __restrict__ src, int h, int w,
-                 uint8_t* __restrict__ dst, int oh, int ow,
-                 const float* __restrict__ minv, float border_value) {
+warp_tile_kernel(const uint8_t* __restrict__ src, int h, int w, int ring,
+                 const int* __restrict__ slots, uint8_t* __restrict__ dst,
+                 int oh, int ow, const float* __restrict__ minv,
+                 float border_value) {
   const int y = blockIdx.y * kTileH + threadIdx.y;
   if (y >= oh) return;   // the whole warp: it is one output row
+  if constexpr (kBatched) {
+    // Stream blockIdx.z: its queued frame in the ring, its output and map.
+    const int b = blockIdx.z;
+    const int slot = slots ? min(max(__ldg(slots + b), 0), ring - 1) : 0;
+    src += (static_cast<size_t>(b) * ring + slot) * h * w * C;
+    dst += static_cast<size_t>(b) * oh * ow * C;
+    minv += b * (kProjective ? 9 : 6);
+  }
   InverseMap<kProjective> m;
   m.load(minv);
   const int tx0 = blockIdx.x * kTileW;
@@ -346,39 +365,54 @@ warp_tile_kernel(const uint8_t* __restrict__ src, int h, int w,
   }
 }
 
+// The frames of one launch: n streams, each reading slot[b] (slots may
+// be null: slot 0) of its ring of q frames.
+struct Frames {
+  int n, q;
+  const int* slots;
+};
+
 template <int C, int kMode, bool kProjective>
-void launch_one(const uint8_t* src, int h, int w, uint8_t* dst, int oh,
-                int ow, const float* minv, float border_value,
+void launch_one(const uint8_t* src, int h, int w, Frames fr, uint8_t* dst,
+                int oh, int ow, const float* minv, float border_value,
                 cudaStream_t s) {
   const dim3 block(kBlockX, kBlockY);
-  const dim3 grid((ow + kTileW - 1) / kTileW, (oh + kTileH - 1) / kTileH);
-  warp_tile_kernel<C, kMode, kProjective><<<grid, block, 0, s>>>(
-      src, h, w, dst, oh, ow, minv, border_value);
+  const dim3 grid((ow + kTileW - 1) / kTileW, (oh + kTileH - 1) / kTileH,
+                  fr.n);
+  // One frame takes the kernel without the stream offsets: they cost the
+  // single-frame emit ~1.2 us of 13.7 in an A/B on an H100 (PERF.md).
+  if (fr.n > 1 || fr.slots) {
+    warp_tile_kernel<C, kMode, kProjective, true><<<grid, block, 0, s>>>(
+        src, h, w, fr.q, fr.slots, dst, oh, ow, minv, border_value);
+  } else {
+    warp_tile_kernel<C, kMode, kProjective, false><<<grid, block, 0, s>>>(
+        src, h, w, fr.q, fr.slots, dst, oh, ow, minv, border_value);
+  }
 }
 
 template <int C, bool kProjective>
-int launch_mode(const uint8_t* src, int h, int w, uint8_t* dst, int oh,
-                int ow, const float* minv, int mode, float border_value,
-                cudaStream_t s) {
+int launch_mode(const uint8_t* src, int h, int w, Frames fr, uint8_t* dst,
+                int oh, int ow, const float* minv, int mode,
+                float border_value, cudaStream_t s) {
   switch (mode) {
     case kBorderConstant:
-      launch_one<C, kBorderConstant, kProjective>(src, h, w, dst, oh, ow,
+      launch_one<C, kBorderConstant, kProjective>(src, h, w, fr, dst, oh, ow,
                                                   minv, border_value, s);
       break;
     case kBorderReplicate:
-      launch_one<C, kBorderReplicate, kProjective>(src, h, w, dst, oh, ow,
+      launch_one<C, kBorderReplicate, kProjective>(src, h, w, fr, dst, oh, ow,
                                                    minv, border_value, s);
       break;
     case kBorderReflect:
-      launch_one<C, kBorderReflect, kProjective>(src, h, w, dst, oh, ow,
+      launch_one<C, kBorderReflect, kProjective>(src, h, w, fr, dst, oh, ow,
                                                  minv, border_value, s);
       break;
     case kBorderWrap:
-      launch_one<C, kBorderWrap, kProjective>(src, h, w, dst, oh, ow, minv,
+      launch_one<C, kBorderWrap, kProjective>(src, h, w, fr, dst, oh, ow, minv,
                                               border_value, s);
       break;
     case kBorderReflect101:
-      launch_one<C, kBorderReflect101, kProjective>(src, h, w, dst, oh, ow,
+      launch_one<C, kBorderReflect101, kProjective>(src, h, w, fr, dst, oh, ow,
                                                     minv, border_value, s);
       break;
     default:
@@ -388,20 +422,23 @@ int launch_mode(const uint8_t* src, int h, int w, uint8_t* dst, int oh,
 }
 
 template <bool kProjective>
-int launch_warp(const void* src, int h, int w, int c, void* dst, int oh,
-                int ow, const void* minv, int mode, float border_value,
-                void* stream) {
-  if (oh <= 0 || ow <= 0) return 0;
+int launch_warp(const void* src, int h, int w, int c, Frames fr, void* dst,
+                int oh, int ow, const void* minv, int mode,
+                float border_value, void* stream) {
+  if (oh <= 0 || ow <= 0 || fr.n <= 0) return 0;
+  if (h <= 0 || w <= 0 || fr.q <= 0 || fr.n > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* in = static_cast<const uint8_t*>(src);
   auto* out = static_cast<uint8_t*>(dst);
   const auto* m = static_cast<const float*>(minv);
   if (c == 1) {
-    return launch_mode<1, kProjective>(in, h, w, out, oh, ow, m, mode,
+    return launch_mode<1, kProjective>(in, h, w, fr, out, oh, ow, m, mode,
                                        border_value, s);
   }
   if (c == 3) {
-    return launch_mode<3, kProjective>(in, h, w, out, oh, ow, m, mode,
+    return launch_mode<3, kProjective>(in, h, w, fr, out, oh, ow, m, mode,
                                        border_value, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -415,14 +452,37 @@ int launch_warp(const void* src, int h, int w, int c, void* dst, int oh,
 extern "C" int vs_warp_affine_u8(const void* src, int h, int w, int c,
                                  void* dst, int oh, int ow, const void* minv,
                                  int mode, float border_value, void* stream) {
-  return launch_warp<false>(src, h, w, c, dst, oh, ow, minv, mode,
-                            border_value, stream);
+  return launch_warp<false>(src, h, w, c, Frames{1, 1, nullptr}, dst, oh, ow,
+                            minv, mode, border_value, stream);
 }
 
 extern "C" int vs_warp_homography_u8(const void* src, int h, int w, int c,
                                      void* dst, int oh, int ow,
                                      const void* minv, int mode,
                                      float border_value, void* stream) {
-  return launch_warp<true>(src, h, w, c, dst, oh, ow, minv, mode,
-                           border_value, stream);
+  return launch_warp<true>(src, h, w, c, Frames{1, 1, nullptr}, dst, oh, ow,
+                           minv, mode, border_value, stream);
+}
+
+// N streams in one launch: src is the (n, q, h, w, c) ring, slots a device
+// int32 (n,) table of the slot each stream reads (null: slot 0), dst
+// (n, oh, ow, c), minv (n, 6) for the affine warp and (n, 9) for the
+// projective one.
+extern "C" int vs_warp_affine_u8_batched(const void* src, int n, int q,
+                                         const void* slots, int h, int w,
+                                         int c, void* dst, int oh, int ow,
+                                         const void* minv, int mode,
+                                         float border_value, void* stream) {
+  return launch_warp<false>(src, h, w, c,
+                            Frames{n, q, static_cast<const int*>(slots)},
+                            dst, oh, ow, minv, mode, border_value, stream);
+}
+
+extern "C" int vs_warp_homography_u8_batched(
+    const void* src, int n, int q, const void* slots, int h, int w, int c,
+    void* dst, int oh, int ow, const void* minv, int mode,
+    float border_value, void* stream) {
+  return launch_warp<true>(src, h, w, c,
+                           Frames{n, q, static_cast<const int*>(slots)},
+                           dst, oh, ow, minv, mode, border_value, stream);
 }

@@ -36,8 +36,16 @@ _SIGNATURES = {
     # src, h, w, c, dst, oh, ow, minv, mode, border_value, stream
     "vs_warp_affine_u8": (_P, _I, _I, _I, _P, _I, _I, _P, _I, _F, _P),
     "vs_warp_homography_u8": (_P, _I, _I, _I, _P, _I, _I, _P, _I, _F, _P),
+    # ring, n, q, slots, h, w, c, dst, oh, ow, minv, mode, border_value,
+    # stream
+    "vs_warp_affine_u8_batched": (_P, _I, _I, _P, _I, _I, _I, _P, _I, _I,
+                                  _P, _I, _F, _P),
+    "vs_warp_homography_u8_batched": (_P, _I, _I, _P, _I, _I, _I, _P, _I,
+                                      _I, _P, _I, _F, _P),
     # gray, h, w, scale, resp, peak, stream
     "vs_corner_response": (_P, _I, _I, _F, _P, _P, _P),
+    # gray, n, h, w, scale, resp, peak, stream
+    "vs_corner_response_batched": (_P, _I, _I, _I, _F, _P, _P, _P),
     # src, dst, gray, n_pix, wb, do_cb, contrast, brightness, do_gamma,
     # gamma, stream
     "vs_enhance_u8": (_P, _P, _P, ctypes.c_longlong, _P, _I, _F, _F, _I, _F,
@@ -54,6 +62,10 @@ _SIGNATURES = {
     # eps2, min_eig_thresh, out_pts, status, err, steps, stream
     "vs_lk_track": (_P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P,
                     _P, _P),
+    # planes, sizes, n_levels, prev_pts, mask, init_pts, n, n_streams, win,
+    # iters, eps2, min_eig_thresh, out_pts, status, err, steps, stream
+    "vs_lk_track_batched": (_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _F,
+                            _P, _P, _P, _P, _P),
 }
 
 _lock = threading.Lock()

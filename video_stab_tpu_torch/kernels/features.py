@@ -4,6 +4,10 @@ Counterpart of ``video_stab_tpu/pallas/features.py:corner_response``, with
 the semantics the JAX package's GFTT dispatches: ``min_eig_response``
 (every stage reflect-101 on its own input) and ``resp >= _dilate3x3(resp)``
 (neighbours wrap around the frame). Block size and aperture are 3.
+
+Every function takes one (H, W) gray or N streams' (N, H, W) grays; K3
+takes the N in one launch (the multi-stream step, ``parallel/``), and
+``LAUNCHES`` counts launches, not frames.
 """
 
 from __future__ import annotations
@@ -21,8 +25,9 @@ SCALE = 1.0 / (4 * 3 * 255.0)
 
 
 def corner_response(gray: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(H, W) float32 u8-domain gray -> (resp float32, peak bool). A CUDA
-    tensor launches K3; a CPU tensor takes the plain version."""
+    """(H, W) or (N, H, W) float32 u8-domain gray -> (resp float32, peak
+    bool) of its shape. A CUDA tensor launches K3; a CPU tensor takes the
+    plain version."""
     if gray.is_cuda:
         return corner_response_cuda(gray)
     if gray.device.type != "cpu":
@@ -48,12 +53,13 @@ def min_eig_response(gray: torch.Tensor, block_size: int = 3,
 
 
 def dilate3x3(x: torch.Tensor) -> torch.Tensor:
-    """3x3 max with neighbours wrapping around the frame (jnp.roll)."""
+    """3x3 max over the last two dims, neighbours wrapping around the
+    frame (jnp.roll)."""
     out = x
     for dy in (-1, 0, 1):
         for dx in (-1, 0, 1):
             if (dy, dx) != (0, 0):
-                out = torch.maximum(out, torch.roll(x, (-dy, -dx), (0, 1)))
+                out = torch.maximum(out, torch.roll(x, (-dy, -dx), (-2, -1)))
     return out
 
 
@@ -66,15 +72,18 @@ def corner_response_plain(gray: torch.Tensor
 
 def corner_response_cuda(gray: torch.Tensor
                          ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch K3 on the current stream: one launch, a shared-memory tile
-    per block, for the response and the wrapped peak test."""
+    """Launch K3 on the current stream: one launch for all N frames, a
+    warp per strip, for the response and the wrapped peak test."""
     global LAUNCHES
-    _lib.require_cuda(gray, "corner_response gray", torch.float32, (2,))
-    h, w = gray.shape
-    resp = torch.empty((h, w), dtype=torch.float32, device=gray.device)
-    peak = torch.empty((h, w), dtype=torch.bool, device=gray.device)
-    rc = _lib.library().vs_corner_response(
-        gray.data_ptr(), h, w, SCALE, resp.data_ptr(), peak.data_ptr(),
+    _lib.require_cuda(gray, "corner_response gray", torch.float32, (2, 3))
+    h, w = gray.shape[-2:]
+    n = 1 if gray.dim() == 2 else gray.shape[0]
+    resp = torch.empty(gray.shape, dtype=torch.float32, device=gray.device)
+    peak = torch.empty(gray.shape, dtype=torch.bool, device=gray.device)
+    if n == 0:
+        return resp, peak
+    rc = _lib.library().vs_corner_response_batched(
+        gray.data_ptr(), n, h, w, SCALE, resp.data_ptr(), peak.data_ptr(),
         _lib.stream_handle(gray.device))
     _lib.check(rc, "corner_response")
     LAUNCHES += 1

@@ -25,6 +25,11 @@ frozen; the kernel stops a point once it has converged. Frozen points never
 move, so both give the JAX early exit's output. Both can report how many
 Newton steps each point ran before it froze (``steps=``, a measurement
 hook: the ladder's callers do not pass it).
+
+N streams (the multi-stream step, ``parallel/``) pass (N, 3, Hl, Wl) and
+(N, Hl, Wl) planes per level and (N, P, ...) points: K6 tracks all N * P
+points in one launch (a grid of points by streams); the plain version
+runs the single-stream ladder per stream and stacks the results.
 """
 
 from __future__ import annotations
@@ -168,7 +173,17 @@ def lk_levels_plain(prev_planes: Sequence[torch.Tensor],
     the Newton steps each point ran over all levels: a point runs a step
     while it is unmasked, every level so far was trackable and it has not
     frozen at this level. Returns (curr_pts (N, 2) (x, y), status (N,)
-    bool, err (N,))."""
+    bool, err (N,)). With a leading stream axis (points (S, N, 2), planes
+    (S, 3, Hl, Wl) and (S, Hl, Wl)) each stream's ladder runs on its own
+    and the outputs are stacked."""
+    if prev_pts.dim() == 3:
+        outs = [lk_levels_plain(
+            [p[b] for p in prev_planes], [c[b] for c in curr_planes],
+            prev_pts[b], pts_mask[b],
+            None if init_pts is None else init_pts[b], win, iters, eps,
+            min_eig_thresh, None if steps is None else steps[b])
+            for b in range(prev_pts.shape[0])]
+        return tuple(torch.stack(t) for t in zip(*outs))
     if steps is not None:
         steps.zero_()
     max_level = len(prev_planes) - 1
@@ -240,8 +255,8 @@ def lk_levels(prev_planes: Sequence[torch.Tensor],
               init_pts: Optional[torch.Tensor], win: int, iters: int,
               eps: float, min_eig_thresh: float,
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K6 on CUDA tensors (one launch), the plain version on CPU tensors.
-    Arguments as ``lk_levels_plain``."""
+    """K6 on CUDA tensors (one launch, for one stream or N), the plain
+    version on CPU tensors. Arguments as ``lk_levels_plain``."""
     args = (prev_planes, curr_planes, prev_pts, pts_mask, init_pts, win,
             iters, eps, min_eig_thresh)
     if prev_pts.is_cuda:
@@ -259,7 +274,8 @@ def lk_levels_cuda(prev_planes: Sequence[torch.Tensor],
                    steps: Optional[torch.Tensor] = None,
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K6 on the current stream: every level, round and step of
-    every point in one launch. ``steps`` as in ``lk_levels_plain``."""
+    every point of every stream in one launch. ``steps`` as in
+    ``lk_levels_plain``."""
     global LAUNCHES
     n_levels = len(prev_planes)
     if not 1 <= n_levels <= MAX_LEVEL + 1 or len(curr_planes) != n_levels:
@@ -268,47 +284,58 @@ def lk_levels_cuda(prev_planes: Sequence[torch.Tensor],
     if not 2 <= win <= MAX_WIN or iters < 0:
         raise ValueError(f"lk_levels: win {win} (K6 takes 2 to {MAX_WIN}),"
                          f" iters {iters}")
-    _lib.require_cuda(prev_pts, "lk prev_pts", torch.float32, (2,))
-    _lib.require_cuda(pts_mask, "lk pts_mask", torch.bool, (1,))
-    n = prev_pts.shape[0]
-    if prev_pts.shape[1] != 2 or pts_mask.shape[0] != n:
+    _lib.require_cuda(prev_pts, "lk prev_pts", torch.float32, (2, 3))
+    batched = prev_pts.dim() == 3
+    _lib.require_cuda(pts_mask, "lk pts_mask", torch.bool,
+                      (prev_pts.dim() - 1,))
+    lead = tuple(prev_pts.shape[:-1])              # (P,) or (N, P)
+    n_streams = prev_pts.shape[0] if batched else 1
+    n = prev_pts.shape[-2]
+    if prev_pts.shape[-1] != 2 or tuple(pts_mask.shape) != lead:
         raise ValueError(f"lk_levels: prev_pts {tuple(prev_pts.shape)}, "
                          f"pts_mask {tuple(pts_mask.shape)}")
     if init_pts is not None:
-        _lib.require_cuda(init_pts, "lk init_pts", torch.float32, (2,))
+        _lib.require_cuda(init_pts, "lk init_pts", torch.float32,
+                          (prev_pts.dim(),))
         if init_pts.shape != prev_pts.shape:
             raise ValueError(f"lk_levels: init_pts {tuple(init_pts.shape)}")
     if steps is not None:
-        _lib.require_cuda(steps, "lk steps", torch.int32, (1,))
-        if steps.shape[0] != n or steps.device != prev_pts.device:
+        _lib.require_cuda(steps, "lk steps", torch.int32,
+                          (prev_pts.dim() - 1,))
+        if tuple(steps.shape) != lead or steps.device != prev_pts.device:
             raise ValueError(f"lk_levels: steps {tuple(steps.shape)} on "
                              f"{steps.device}")
     ptrs = []
     sizes = []
     for level, (stk, cur) in enumerate(zip(prev_planes, curr_planes)):
-        _lib.require_cuda(stk, f"lk prev planes {level}", torch.float32, (3,))
-        _lib.require_cuda(cur, f"lk curr plane {level}", torch.float32, (2,))
-        if stk.shape[0] != 3 or stk.shape[1:] != cur.shape:
+        _lib.require_cuda(stk, f"lk prev planes {level}", torch.float32,
+                          (4 if batched else 3,))
+        _lib.require_cuda(cur, f"lk curr plane {level}", torch.float32,
+                          (3 if batched else 2,))
+        if stk.shape[-3] != 3 or stk.shape[-2:] != cur.shape[-2:] \
+                or stk.shape[:-3] != cur.shape[:-2] \
+                or (batched and cur.shape[0] != n_streams):
             raise ValueError(f"lk_levels: level {level} prev planes "
                              f"{tuple(stk.shape)}, curr {tuple(cur.shape)}")
         if stk.device != prev_pts.device or cur.device != prev_pts.device:
             raise ValueError("lk_levels: planes and points on different "
                              "devices")
         ptrs += [stk.data_ptr(), cur.data_ptr()]
-        sizes += list(cur.shape)
+        sizes += list(cur.shape[-2:])
     dev = prev_pts.device
-    out = torch.empty((n, 2), dtype=torch.float32, device=dev)
-    status = torch.empty(n, dtype=torch.bool, device=dev)
-    err = torch.empty(n, dtype=torch.float32, device=dev)
-    if n == 0:
+    out = torch.empty(prev_pts.shape, dtype=torch.float32, device=dev)
+    status = torch.empty(lead, dtype=torch.bool, device=dev)
+    err = torch.empty(lead, dtype=torch.float32, device=dev)
+    if n == 0 or n_streams == 0:
         return out, status, err
     ptr_arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
     size_arr = (ctypes.c_int * len(sizes))(*sizes)
-    rc = _lib.library().vs_lk_track(
+    rc = _lib.library().vs_lk_track_batched(
         ctypes.cast(ptr_arr, ctypes.c_void_p),
         ctypes.cast(size_arr, ctypes.c_void_p), n_levels,
         prev_pts.data_ptr(), pts_mask.data_ptr(),
-        None if init_pts is None else init_pts.data_ptr(), n, win, iters,
+        None if init_pts is None else init_pts.data_ptr(), n, n_streams,
+        win, iters,
         eps * eps, min_eig_thresh, out.data_ptr(), status.data_ptr(),
         err.data_ptr(), None if steps is None else steps.data_ptr(),
         _lib.stream_handle(dev))

@@ -14,7 +14,13 @@ maps inside the source, it reads the taps without index maps
 (``tests/test_torch_warp_tiles.py`` holds that rule against the per-pixel
 coordinates).
 
-``LAUNCHES`` counts K1 launches, ``HOMOGRAPHY_LAUNCHES`` K2 launches.
+``warp_affine_u8_batched`` / ``warp_homography_u8_batched`` warp N
+streams' queued frames in one launch, each stream's frame read in place
+from the (N, Q, H, W, C) frame ring at a device slot table (the
+multi-stream emit, ``parallel/``).
+
+``LAUNCHES`` counts K1 launches, ``HOMOGRAPHY_LAUNCHES`` K2 launches, one
+per launch whatever its number of streams.
 """
 
 from __future__ import annotations
@@ -158,5 +164,149 @@ def warp_homography_u8_cuda(img: torch.Tensor, hinv: torch.Tensor,
     global HOMOGRAPHY_LAUNCHES
     out = _launch("vs_warp_homography_u8", 9, img, hinv, out_h, out_w,
                   border_mode, border_value)
+    HOMOGRAPHY_LAUNCHES += 1
+    return out
+
+
+def _ring_frames(ring: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """Stream b's frame ``ring[b, slots[b]]`` of an (N, Q, H, W[, C]) ring,
+    gathered by torch ops on the ring's device (no host read)."""
+    q = ring.shape[1]
+    flat = torch.arange(ring.shape[0], device=ring.device) * q \
+        + slots.to(device=ring.device, dtype=torch.int64)
+    return ring.reshape(-1, *ring.shape[2:]).index_select(0, flat)
+
+
+def warp_affine_u8_batched(ring: torch.Tensor, slots: torch.Tensor,
+                           m: torch.Tensor, out_h: Optional[int] = None,
+                           out_w: Optional[int] = None,
+                           border_mode: int = BORDER_CONSTANT,
+                           border_value: float = 0.0,
+                           inverse_map: bool = False) -> torch.Tensor:
+    """K1 for N streams: stream b's output is ``warp_affine_u8(ring[b,
+    slots[b]], m[b])``. ring: (N, Q, H, W[, C]) u8; slots: (N,) int32 ring
+    slots on the ring's device; m: (N, 2, 3) forward maps (the inverses
+    when ``inverse_map``). Returns (N, out_h, out_w[, C]) u8. A CUDA ring
+    launches K1 once for all N; a CPU ring takes the plain version."""
+    out_h = out_h if out_h is not None else ring.shape[2]
+    out_w = out_w if out_w is not None else ring.shape[3]
+    m = m.to(torch.float32)
+    minv = (m if inverse_map else invert_affine(m)).reshape(-1, 6)
+    if ring.is_cuda:
+        return warp_affine_u8_batched_cuda(ring, slots, minv.contiguous(),
+                                           out_h, out_w, border_mode,
+                                           border_value)
+    if ring.device.type != "cpu":
+        raise ValueError(f"warp_affine_u8_batched: unsupported device "
+                         f"{ring.device}")
+    return warp_affine_u8_batched_plain(ring, slots, minv, out_h, out_w,
+                                        border_mode, border_value)
+
+
+def warp_affine_u8_batched_plain(ring: torch.Tensor, slots: torch.Tensor,
+                                 minv: torch.Tensor, out_h: int, out_w: int,
+                                 border_mode: int = BORDER_CONSTANT,
+                                 border_value: float = 0.0) -> torch.Tensor:
+    """Plain version of the batched K1 (any device): the single plain
+    version per stream, stacked. minv: (N, 6)."""
+    frames = _ring_frames(ring, slots)
+    return torch.stack([warp_affine_u8_plain(f, mi, out_h, out_w,
+                                             border_mode, border_value)
+                        for f, mi in zip(frames, minv)])
+
+
+def _launch_batched(fn_name: str, n_minv: int, ring: torch.Tensor,
+                    slots: torch.Tensor, minv: torch.Tensor, out_h: int,
+                    out_w: int, border_mode: int,
+                    border_value: float) -> torch.Tensor:
+    """Check the inputs, allocate the (N, out_h, out_w[, C]) output and
+    launch one batched warp kernel on the current stream."""
+    name = fn_name.removeprefix("vs_")
+    _lib.require_cuda(ring, f"{name} ring", torch.uint8, (4, 5))
+    _lib.require_cuda(slots, f"{name} slots", torch.int32, (1,))
+    _lib.require_cuda(minv, f"{name} minv", torch.float32, (2,))
+    n, q, h, w = ring.shape[:4]
+    ch = 1 if ring.dim() == 4 else ring.shape[4]
+    if ch not in (1, 3) or tuple(minv.shape) != (n, n_minv) \
+            or slots.shape[0] != n or slots.device != ring.device \
+            or minv.device != ring.device:
+        raise ValueError(f"{name}: bad shapes ring {tuple(ring.shape)} "
+                         f"slots {tuple(slots.shape)} minv "
+                         f"{tuple(minv.shape)}")
+    if border_mode not in range(5):
+        raise ValueError(f"{name}: unknown border mode {border_mode}")
+    shape = (n, out_h, out_w) if ring.dim() == 4 else (n, out_h, out_w, ch)
+    out = torch.empty(shape, dtype=torch.uint8, device=ring.device)
+    rc = getattr(_lib.library(), fn_name)(
+        ring.data_ptr(), n, q, slots.data_ptr(), h, w, ch, out.data_ptr(),
+        out_h, out_w, minv.data_ptr(), border_mode, float(border_value),
+        _lib.stream_handle(ring.device))
+    _lib.check(rc, name)
+    return out
+
+
+def warp_affine_u8_batched_cuda(ring: torch.Tensor, slots: torch.Tensor,
+                                minv: torch.Tensor, out_h: int, out_w: int,
+                                border_mode: int = BORDER_CONSTANT,
+                                border_value: float = 0.0) -> torch.Tensor:
+    """Launch K1 once for N streams on the current stream. minv: (N, 6)
+    float32 inverse maps on the ring's device."""
+    global LAUNCHES
+    out = _launch_batched("vs_warp_affine_u8_batched", 6, ring, slots, minv,
+                          out_h, out_w, border_mode, border_value)
+    LAUNCHES += 1
+    return out
+
+
+def warp_homography_u8_batched(ring: torch.Tensor, slots: torch.Tensor,
+                               h_mat: torch.Tensor,
+                               out_h: Optional[int] = None,
+                               out_w: Optional[int] = None,
+                               border_mode: int = BORDER_CONSTANT,
+                               border_value: float = 0.0,
+                               inverse_map: bool = False) -> torch.Tensor:
+    """K2 for N streams, as ``warp_affine_u8_batched`` with (N, 3, 3)
+    homographies. A CUDA ring launches K2 once for all N; a CPU ring takes
+    the plain version."""
+    out_h = out_h if out_h is not None else ring.shape[2]
+    out_w = out_w if out_w is not None else ring.shape[3]
+    h_mat = h_mat.to(torch.float32)
+    hinv = (h_mat if inverse_map else invert_homography(h_mat)).reshape(-1, 9)
+    if ring.is_cuda:
+        return warp_homography_u8_batched_cuda(ring, slots, hinv.contiguous(),
+                                               out_h, out_w, border_mode,
+                                               border_value)
+    if ring.device.type != "cpu":
+        raise ValueError(f"warp_homography_u8_batched: unsupported device "
+                         f"{ring.device}")
+    return warp_homography_u8_batched_plain(ring, slots, hinv, out_h, out_w,
+                                            border_mode, border_value)
+
+
+def warp_homography_u8_batched_plain(ring: torch.Tensor, slots: torch.Tensor,
+                                     hinv: torch.Tensor, out_h: int,
+                                     out_w: int,
+                                     border_mode: int = BORDER_CONSTANT,
+                                     border_value: float = 0.0
+                                     ) -> torch.Tensor:
+    """Plain version of the batched K2 (any device): the single plain
+    version per stream, stacked. hinv: (N, 9)."""
+    frames = _ring_frames(ring, slots)
+    return torch.stack([warp_homography_u8_plain(f, hi, out_h, out_w,
+                                                 border_mode, border_value)
+                        for f, hi in zip(frames, hinv)])
+
+
+def warp_homography_u8_batched_cuda(ring: torch.Tensor, slots: torch.Tensor,
+                                    hinv: torch.Tensor, out_h: int,
+                                    out_w: int,
+                                    border_mode: int = BORDER_CONSTANT,
+                                    border_value: float = 0.0
+                                    ) -> torch.Tensor:
+    """Launch K2 once for N streams on the current stream. hinv: (N, 9)
+    float32 row-major inverse homographies on the ring's device."""
+    global HOMOGRAPHY_LAUNCHES
+    out = _launch_batched("vs_warp_homography_u8_batched", 9, ring, slots,
+                          hinv, out_h, out_w, border_mode, border_value)
     HOMOGRAPHY_LAUNCHES += 1
     return out

@@ -163,5 +163,9 @@ def resolve_deepstab_weights(params, device: Optional[torch.device] = None
 
 def predict_transform(net: DeepStabNet, prev_gray: torch.Tensor,
                       curr_gray: torch.Tensor) -> torch.Tensor:
-    """(H, W) pair -> (3,) transform; the LK + RANSAC path's contract."""
-    return net(torch.stack([prev_gray, curr_gray], dim=-1)[None])[0]
+    """(H, W) pair -> (3,) transform; the LK + RANSAC path's contract. N
+    streams' (N, H, W) pairs -> (N, 3) in one forward pass of the shared
+    network (the multi-stream step, ``parallel/``)."""
+    pair = torch.stack([prev_gray, curr_gray], dim=-1)
+    return net(pair.reshape(-1, *pair.shape[-3:])).reshape(
+        *pair.shape[:-3], 3)

@@ -9,6 +9,12 @@ stream key has no torch counterpart). By default they come from a
 ``torch.Generator`` on the points' device; a caller that must reproduce the
 JAX package's estimates passes JAX's own draws as ``draws``.
 
+N streams estimate at once on (N, P, 2) point sets with (N, K, 2) draws
+(the multi-stream step, ``parallel/``): every op then runs once for the
+batch. Each stream draws from its own generator, as a single stream with
+that generator would (``ransac_draws_streams``): N small ``torch.rand``
+launches a step, since a torch generator draws for one tensor at a time.
+
 The legacy stabilizer's deterministic solver (``remove_outliers_median``,
 ``estimate_rigid_closed_form``) is here too, bit for bit with the JAX
 package's.
@@ -38,29 +44,31 @@ def _similarity_from_two(p1, p2, q1, q2):
 
 
 def _similarity_lsq(prev: torch.Tensor, curr: torch.Tensor, w: torch.Tensor):
-    """Weighted least-squares similarity fit (global optimum for 4-DOF)."""
-    n = w.sum()
+    """Weighted least-squares similarity fit (global optimum for 4-DOF),
+    batched over the leading axes of (..., P, 2) points."""
+    n = w.sum(dim=-1)
     ok = n >= 2.0
-    safe_n = torch.where(ok, n, torch.ones_like(n))
-    pm = (prev * w[:, None]).sum(dim=0) / safe_n
-    qm = (curr * w[:, None]).sum(dim=0) / safe_n
-    pc = (prev - pm) * w[:, None]
-    qc = curr - qm
-    dot = (pc[:, 0] * qc[:, 0] + pc[:, 1] * qc[:, 1]).sum()
-    cross = (pc[:, 0] * qc[:, 1] - pc[:, 1] * qc[:, 0]).sum()
-    norm = ((prev - pm) ** 2 * w[:, None]).sum()
+    safe_n = torch.where(ok, n, torch.ones_like(n))[..., None]
+    pm = (prev * w[..., None]).sum(dim=-2) / safe_n
+    qm = (curr * w[..., None]).sum(dim=-2) / safe_n
+    pc = (prev - pm[..., None, :]) * w[..., None]
+    qc = curr - qm[..., None, :]
+    dot = (pc[..., 0] * qc[..., 0] + pc[..., 1] * qc[..., 1]).sum(dim=-1)
+    cross = (pc[..., 0] * qc[..., 1] - pc[..., 1] * qc[..., 0]).sum(dim=-1)
+    norm = ((prev - pm[..., None, :]) ** 2 * w[..., None]).sum(dim=(-2, -1))
     big = norm > 1e-9
     safe_norm = torch.where(big, norm, torch.ones_like(norm))
     a = torch.where(big, dot / safe_norm, torch.ones_like(dot))
     b = torch.where(big, cross / safe_norm, torch.zeros_like(cross))
-    tx = qm[0] - (a * pm[0] - b * pm[1])
-    ty = qm[1] - (b * pm[0] + a * pm[1])
-    return torch.stack([a, b, tx, ty]), ok
+    tx = qm[..., 0] - (a * pm[..., 0] - b * pm[..., 1])
+    ty = qm[..., 1] - (b * pm[..., 0] + a * pm[..., 1])
+    return torch.stack([a, b, tx, ty], dim=-1), ok
 
 
 def _params_to_matrix(theta: torch.Tensor) -> torch.Tensor:
-    a, b, tx, ty = theta[0], theta[1], theta[2], theta[3]
-    return torch.stack([torch.stack([a, -b, tx]), torch.stack([b, a, ty])])
+    a, b, tx, ty = theta.unbind(dim=-1)
+    return torch.stack([torch.stack([a, -b, tx], dim=-1),
+                        torch.stack([b, a, ty], dim=-1)], dim=-2)
 
 
 def ransac_draws(generator: torch.Generator, n_hypotheses: int,
@@ -72,6 +80,18 @@ def ransac_draws(generator: torch.Generator, n_hypotheses: int,
     u = torch.rand((n_hypotheses, width), generator=generator,
                    device=n_valid.device)
     hi = torch.clamp(n_valid, min=1).to(torch.float32)
+    return torch.floor(u * hi).to(torch.int64).clamp(max=hi.to(torch.int64) - 1)
+
+
+def ransac_draws_streams(generators, n_hypotheses: int, n_valid: torch.Tensor,
+                         width: int = 2) -> torch.Tensor:
+    """(N, K, width) draws for N streams, stream i's from ``generators[i]``
+    with its ``n_valid[i]``: exactly what ``ransac_draws`` gives a single
+    stream with that generator. One ``torch.rand`` per stream (a
+    generator draws for one tensor at a time), then one floor for all."""
+    u = torch.stack([torch.rand((n_hypotheses, width), generator=g,
+                                device=n_valid.device) for g in generators])
+    hi = torch.clamp(n_valid, min=1).to(torch.float32)[:, None, None]
     return torch.floor(u * hi).to(torch.int64).clamp(max=hi.to(torch.int64) - 1)
 
 
@@ -91,38 +111,61 @@ def estimate_similarity_ransac(
         instead — JAX's ``jax.random.randint(key, (K, 2), 0,
         max(n_valid, 1))``, for parity with the JAX package.
 
+    Every argument may carry a leading stream axis S, as every result then
+    does: (S, N, 2) points, (S, N) masks, (S, K, 2) draws (``generator``
+    a sequence of S generators).
+
     Returns:
       m: (2, 3) float32 transform (identity when under 4 valid points).
       ok: scalar bool — estimate valid.
       inliers: (N,) bool inlier mask of the final model.
     """
-    n_valid = mask.to(torch.int32).sum()
+    n_valid = mask.to(torch.int32).sum(dim=-1)
     # Compact valid indices to the front so uniform sampling hits valid points.
-    order = torch.argsort((~mask).to(torch.uint8), stable=True)
+    order = torch.argsort((~mask).to(torch.uint8), dim=-1, stable=True)
     if draws is None:
         if generator is None:
             raise ValueError("pass a generator or the draws")
-        draws = ransac_draws(generator, n_hypotheses, n_valid)
-    samples = order[draws.to(device=order.device, dtype=torch.int64)]
-    i, j = samples[:, 0], samples[:, 1]
-    theta, ok = _similarity_from_two(prev[i], prev[j], curr[i], curr[j])
+        draws = ransac_draws(generator, n_hypotheses, n_valid) \
+            if mask.dim() == 1 else \
+            ransac_draws_streams(generator, n_hypotheses, n_valid)
+    st = mask.dim() - 1                           # stream axes
+    draws = draws.to(device=order.device, dtype=torch.int64)
+    samples = _take(order, draws, st)             # (..., K, 2)
+    i, j = samples[..., 0], samples[..., 1]
+    theta, ok = _similarity_from_two(_take(prev, i, st), _take(prev, j, st),
+                                     _take(curr, i, st), _take(curr, j, st))
     ok = ok & (i != j)
-    px, py = prev[:, 0], prev[:, 1]
-    a, b = theta[:, 0:1], theta[:, 1:2]
-    rx = a * px - b * py + theta[:, 2:3]
-    ry = b * px + a * py + theta[:, 3:4]
-    err2 = (rx - curr[:, 0]) ** 2 + (ry - curr[:, 1]) ** 2
-    inl = mask[None, :] & (err2 < threshold * threshold)
-    scores = torch.where(ok, inl.to(torch.int32).sum(dim=1),
-                         torch.full_like(n_valid, -1))
-    best = torch.argmax(scores).view(1)       # first maximum, as jnp.argmax
-    best_inliers = inl.index_select(0, best)[0]
+    px, py = prev[..., None, :, 0], prev[..., None, :, 1]
+    a, b = theta[..., 0:1], theta[..., 1:2]
+    rx = a * px - b * py + theta[..., 2:3]
+    ry = b * px + a * py + theta[..., 3:4]
+    err2 = (rx - curr[..., None, :, 0]) ** 2 + (ry - curr[..., None, :, 1]) ** 2
+    inl = mask[..., None, :] & (err2 < threshold * threshold)
+    scores = torch.where(ok, inl.to(torch.int32).sum(dim=-1),
+                         torch.full_like(n_valid[..., None], -1))
+    # First maximum, as jnp.argmax.
+    best = torch.argmax(scores, dim=-1, keepdim=True)
+    best_inliers = _take(inl, best, st)[..., 0, :]
 
     theta, fit_ok = _similarity_lsq(prev, curr, best_inliers.to(torch.float32))
-    enough = (n_valid >= 4) & (scores.index_select(0, best)[0] >= 2) & fit_ok
+    enough = (n_valid >= 4) & (_take(scores, best, st)[..., 0] >= 2) & fit_ok
     eye = torch.eye(2, 3, dtype=torch.float32, device=prev.device)
-    m = torch.where(enough, _params_to_matrix(theta), eye)
-    return m, enough, best_inliers & enough
+    m = torch.where(enough[..., None, None], _params_to_matrix(theta), eye)
+    return m, enough, best_inliers & enough[..., None]
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor, s: int) -> torch.Tensor:
+    """``x[idx]`` along the axis after ``s`` stream axes, per stream: x
+    (*S, P, *F) and int64 idx (*S, *I) -> (*S, *I, *F). With no stream
+    axis a plain index."""
+    if s == 0:
+        return x[idx]
+    feat = x.shape[s + 1:]
+    flat = idx.reshape(*idx.shape[:s], -1)
+    g = flat.reshape(*flat.shape, *([1] * len(feat))).expand(*flat.shape,
+                                                             *feat)
+    return x.gather(s, g).reshape(*idx.shape, *feat)
 
 
 # The legacy solver below reproduces the JAX package's float32 results bit

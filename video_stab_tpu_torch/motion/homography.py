@@ -21,6 +21,12 @@ counted in ``chip_smoke.py`` and written down in PERF.md.
 
 The products are ``torch.matmul``, as the JAX package leaves them to XLA.
 TF32 stays off (the package turns it off at import).
+
+N streams estimate at once on (N, P, 2) point sets (the multi-stream step,
+``parallel/``): the 500 hypotheses of every stream are one batch of LU
+solves, and ``eigh`` and ``matrix_exp`` take the (N, 9, 9) and (N, 3, 3)
+batches in one call each, so the host reads per step stay those of one
+stream.
 """
 
 from __future__ import annotations
@@ -30,7 +36,8 @@ from typing import Callable, Optional
 
 import torch
 
-from video_stab_tpu_torch.motion.estimate import ransac_draws
+from video_stab_tpu_torch.motion.estimate import (_take, ransac_draws,
+                                                  ransac_draws_streams)
 from video_stab_tpu_torch.ops.warp import det3
 
 
@@ -63,8 +70,9 @@ def _dlt_4pt(p: torch.Tensor, q: torch.Tensor
 
 
 def _project(h: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
-    """Apply (..., 3, 3) H to (N, 2) points: (..., N, 2)."""
-    x, y = pts[:, 0], pts[:, 1]
+    """Apply (..., K, 3, 3) H to (..., N, 2) points: (..., K, N, 2), the
+    leading axes of both broadcast."""
+    x, y = pts[..., None, :, 0], pts[..., None, :, 1]
 
     def row(i):
         return (h[..., i, 0:1] * x + h[..., i, 1:2] * y) + h[..., i, 2:3]
@@ -85,67 +93,84 @@ def estimate_homography_ransac(
     prev/curr: (N, 2) masked point sets; mask: (N,) bool. The hypotheses'
     draws come from ``generator`` unless ``draws`` ((K, 4) int64 in
     [0, max(n_valid, 1)), e.g. the JAX package's own) are given. Returns
-    (H (3, 3), ok, inliers); the identity when under 8 valid points."""
-    n_valid = mask.to(torch.int32).sum()
-    order = torch.argsort((~mask).to(torch.uint8), stable=True)
+    (H (3, 3), ok, inliers); the identity when under 8 valid points.
+    Every argument and result may carry a leading stream axis S
+    (``generator`` then a sequence of S generators)."""
+    st = mask.dim() - 1                           # stream axes
+    n_valid = mask.to(torch.int32).sum(dim=-1)
+    order = torch.argsort((~mask).to(torch.uint8), dim=-1, stable=True)
     if draws is None:
         if generator is None:
             raise ValueError("pass a generator or the draws")
-        draws = ransac_draws(generator, n_hypotheses, n_valid, width=4)
-    samples = order[draws.to(device=order.device, dtype=torch.int64)]
-    h, ok = _dlt_4pt(prev[samples], curr[samples])          # (K, 3, 3)
-    s0, s1, s2, s3 = samples.unbind(dim=1)
+        draws = ransac_draws(generator, n_hypotheses, n_valid, width=4) \
+            if st == 0 else \
+            ransac_draws_streams(generator, n_hypotheses, n_valid, width=4)
+    samples = _take(order, draws.to(device=order.device, dtype=torch.int64),
+                    st)
+    h, ok = _dlt_4pt(_take(prev, samples, st),
+                     _take(curr, samples, st))      # (..., K, 3, 3)
+    s0, s1, s2, s3 = samples.unbind(dim=-1)
     distinct = (s0 != s1) & (s0 != s2) & (s0 != s3) & (s1 != s2) \
         & (s1 != s3) & (s2 != s3)
-    err2 = ((_project(h, prev) - curr) ** 2).sum(dim=-1)     # (K, N)
-    inl = mask[None, :] & (err2 < threshold * threshold)
-    scores = torch.where(ok & distinct, inl.to(torch.int32).sum(dim=1),
-                         torch.full_like(n_valid, -1))
-    best = torch.argmax(scores).view(1)       # first maximum, as jnp.argmax
-    best_inl = inl.index_select(0, best)[0]
+    err2 = ((_project(h, prev) - curr[..., None, :, :]) ** 2).sum(dim=-1)
+    inl = mask[..., None, :] & (err2 < threshold * threshold)   # (..., K, N)
+    scores = torch.where(ok & distinct, inl.to(torch.int32).sum(dim=-1),
+                         torch.full_like(n_valid[..., None], -1))
+    # First maximum, as jnp.argmax.
+    best = torch.argmax(scores, dim=-1, keepdim=True)
+    best_inl = _take(inl, best, st)[..., 0, :]
 
     # Least-squares refit on the best inlier set: Hartley-normalized DLT,
     # smallest eigenvector of the weighted 9x9 normal matrix.
     w = best_inl.to(torch.float32)
-    n_w = torch.clamp(w.sum(), min=1.0)
+    n_w = torch.clamp(w.sum(dim=-1), min=1.0)
 
     def norm_transform(pts):
-        mean = (pts * w[:, None]).sum(dim=0) / n_w
-        d = torch.sqrt(((pts - mean) ** 2).sum(dim=1))
-        scale = math.sqrt(2.0) / torch.clamp((d * w).sum() / n_w, min=1e-6)
-        return mean, scale, (pts - mean) * scale
+        mean = (pts * w[..., None]).sum(dim=-2) / n_w[..., None]
+        d = torch.sqrt(((pts - mean[..., None, :]) ** 2).sum(dim=-1))
+        scale = math.sqrt(2.0) / torch.clamp((d * w).sum(dim=-1) / n_w,
+                                             min=1e-6)
+        return mean, scale, (pts - mean[..., None, :]) * scale[..., None,
+                                                                None]
 
     mp, sp, pn = norm_transform(prev)
     mq, sq, qn = norm_transform(curr)
-    x, y = pn[:, 0], pn[:, 1]
-    uu, vv = qn[:, 0], qn[:, 1]
+    x, y = pn[..., 0], pn[..., 1]
+    uu, vv = qn[..., 0], qn[..., 1]
     z = torch.zeros_like(x)
     o = torch.ones_like(x)
-    r1 = torch.stack([x, y, o, z, z, z, -uu * x, -uu * y, -uu], dim=1)
-    r2 = torch.stack([z, z, z, x, y, o, -vv * x, -vv * y, -vv], dim=1)
-    a = torch.cat([r1 * w[:, None], r2 * w[:, None]], dim=0)    # (2N, 9)
-    hn = _smallest_eigenvector(a.T @ a).reshape(3, 3)
+    r1 = torch.stack([x, y, o, z, z, z, -uu * x, -uu * y, -uu], dim=-1)
+    r2 = torch.stack([z, z, z, x, y, o, -vv * x, -vv * y, -vv], dim=-1)
+    a = torch.cat([r1 * w[..., None], r2 * w[..., None]], dim=-2)  # (2N, 9)
+    hn = _smallest_eigenvector(a.transpose(-1, -2) @ a).reshape(
+        *a.shape[:-2], 3, 3)
     zero = torch.zeros_like(sp)
     one = torch.ones_like(sp)
-    t_p = torch.stack([torch.stack([sp, zero, -sp * mp[0]]),
-                       torch.stack([zero, sp, -sp * mp[1]]),
-                       torch.stack([zero, zero, one])])
-    t_q_inv = torch.stack([torch.stack([1.0 / sq, zero, mq[0]]),
-                           torch.stack([zero, 1.0 / sq, mq[1]]),
-                           torch.stack([zero, zero, one])])
+
+    def mat3(rows):
+        return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+    t_p = mat3([[sp, zero, -sp * mp[..., 0]],
+                [zero, sp, -sp * mp[..., 1]],
+                [zero, zero, one]])
+    t_q_inv = mat3([[1.0 / sq, zero, mq[..., 0]],
+                    [zero, 1.0 / sq, mq[..., 1]],
+                    [zero, zero, one]])
     h = t_q_inv @ hn @ t_p
-    h22 = h[2, 2]
+    h22 = h[..., 2:3, 2:3]
     h = h / torch.where(h22.abs() > 1e-9, h22, torch.full_like(h22, 1e-9))
 
-    enough = (n_valid >= 8) & (scores.index_select(0, best)[0] >= 4)
+    enough = (n_valid >= 8) & (_take(scores, best, st)[..., 0] >= 4)
     eye = torch.eye(3, dtype=torch.float32, device=prev.device)
-    return torch.where(enough, h, eye), enough, best_inl & enough
+    return torch.where(enough[..., None, None], h, eye), enough, \
+        best_inl & enough[..., None]
 
 
 def _smallest_eigenvector(m: torch.Tensor) -> torch.Tensor:
-    """Unit eigenvector of the smallest eigenvalue of a symmetric (n, n)
-    matrix (sign arbitrary; ``eigh`` sorts its eigenvalues ascending)."""
-    return torch.linalg.eigh(m)[1][:, 0]
+    """Unit eigenvector of the smallest eigenvalue of symmetric (..., n, n)
+    matrices (sign arbitrary; ``eigh`` sorts its eigenvalues ascending):
+    one ``eigh`` call for the whole batch."""
+    return torch.linalg.eigh(m)[1][..., :, 0]
 
 
 def _normalize_sl3(h: torch.Tensor) -> torch.Tensor:

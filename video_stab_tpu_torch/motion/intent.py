@@ -2,7 +2,9 @@
 
 Counterpart of ``video_stab_tpu/motion/intent.py`` (analyzeMotionIntent,
 calculateAdaptiveStabilizationStrength and the per-intent correction
-scaling at emission), as pure functions over the transform ring.
+scaling at emission), as pure functions over the transform ring; for N
+streams (the multi-stream step, ``parallel/``) over N rings (N, RING, 3)
+with every other argument and result gaining a leading N.
 """
 
 from __future__ import annotations
@@ -23,15 +25,15 @@ class MotionIntent(enum.IntEnum):
 
 
 def _variance(vals: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    count = torch.clamp(w.sum(), min=1.0)
-    mean = (vals * w).sum() / count
-    return (((vals - mean) ** 2) * w).sum() / count
+    count = torch.clamp(w.sum(dim=-1), min=1.0)
+    mean = (vals * w).sum(dim=-1) / count
+    return (((vals - mean[..., None]) ** 2) * w).sum(dim=-1) / count
 
 
 def _consistency(vals: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """1 / (1 + var/mean^2), clamped to [0,1]; 0 for mean == 0."""
-    count = torch.clamp(w.sum(), min=1.0)
-    mean = (vals * w).sum() / count
+    count = torch.clamp(w.sum(dim=-1), min=1.0)
+    mean = (vals * w).sum(dim=-1) / count
     var = _variance(vals, w)
     nonzero = mean != 0.0
     safe = torch.where(nonzero, mean * mean, torch.ones_like(mean))
@@ -47,20 +49,20 @@ def analyze_motion_intent(trans_ring: torch.Tensor,
 
     trans_ring: (RING, 3) raw transforms; n_transforms its length; motion:
     (3,) the emitted frame's raw transform; frame_index: emitted index."""
-    mag = torch.sqrt(motion[0] ** 2 + motion[1] ** 2)
-    ang_vel = torch.abs(motion[2]) * 180.0 / math.pi * 30.0
+    mag = torch.sqrt(motion[..., 0] ** 2 + motion[..., 1] ** 2)
+    ang_vel = torch.abs(motion[..., 2]) * 180.0 / math.pi * 30.0
 
     window = 15
     offs = torch.arange(window, device=trans_ring.device)
     start = torch.clamp(frame_index - window, min=0)
-    idx = start + offs
-    valid = (idx < frame_index) & (idx < n_transforms)
+    idx = start[..., None] + offs
+    valid = (idx < frame_index[..., None]) & (idx < n_transforms[..., None])
     t = ring_get(trans_ring, idx.clamp(min=0))               # (15, 3)
     w = valid.to(trans_ring.dtype)
-    mags = torch.sqrt(t[:, 0] ** 2 + t[:, 1] ** 2)
-    dirs = torch.atan2(t[:, 1], t[:, 0])
+    mags = torch.sqrt(t[..., 0] ** 2 + t[..., 1] ** 2)
+    dirs = torch.atan2(t[..., 1], t[..., 0])
 
-    any_recent = w.sum() > 0
+    any_recent = w.sum(dim=-1) > 0
     dir_var = _variance(dirs, w)
     mag_cons = _consistency(mags, w)
 

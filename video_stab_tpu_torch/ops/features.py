@@ -6,6 +6,11 @@ its 3x3 peak mask come from K3 (``kernels/features.py``). Candidates are
 the exact top ``n_candidates`` by response, as the JAX package's
 ``topk="flat"`` path takes them; its ``"staged"`` top-k and the row-budget
 cascade are TPU workarounds and are not ported.
+
+N streams detect at once on (N, H, W) grays (the multi-stream step,
+``parallel/``): one K3 launch, one sort, and one greedy selection over
+(N, C, C) conflict matrices whose convergence flag is read on the host
+once per ``NMS_ROUNDS_PER_SYNC`` rounds for the whole batch.
 """
 
 from __future__ import annotations
@@ -30,10 +35,10 @@ NMS_SYNCS = 0   # host reads the NMS loop has made since import
 
 def top_candidates(values: torch.Tensor, k: int
                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The k largest of a 1-D tensor, ties to the lower index — what
+    """The k largest along the last dim, ties to the lower index — what
     ``lax.top_k`` returns (``torch.topk`` orders ties arbitrarily on CUDA)."""
     vals, idx = torch.sort(values, descending=True, stable=True)
-    return vals[:k], idx[:k]
+    return vals[..., :k], idx[..., :k]
 
 
 def good_features_to_track(
@@ -49,7 +54,8 @@ def good_features_to_track(
     """goodFeaturesToTrack with static shapes.
 
     Args:
-      gray: (H, W) float32 u8-domain grayscale.
+      gray: (H, W) float32 u8-domain grayscale, or (N, H, W) for N streams
+            (the results then have a leading N).
       roi: optional (4,) [x, y, w, h] integer tensor; response outside is
            zeroed.
       topk: accepted and ignored (a TPU layout knob).
@@ -59,7 +65,7 @@ def good_features_to_track(
       mask: (max_corners,) bool validity.
     """
     del topk
-    h, w = gray.shape
+    h, w = gray.shape[-2:]
     if block_size == 3:
         resp, is_peak = corner_response(gray)
     else:
@@ -72,10 +78,10 @@ def good_features_to_track(
                   (ys >= roi[1]) & (ys < roi[1] + roi[3]))
         resp = torch.where(inside, resp, torch.zeros_like(resp))
         is_peak = resp >= _dilate3x3(resp)
-    thresh = quality_level * resp.max()
+    thresh = quality_level * resp.amax(dim=(-2, -1), keepdim=True)
     cand = torch.where(is_peak & (resp > thresh), resp,
                        torch.full_like(resp, -1.0))
-    top_vals, top_idx = top_candidates(cand.reshape(-1),
+    top_vals, top_idx = top_candidates(cand.flatten(-2),
                                        min(n_candidates, h * w))
     pts, mask, _ = _nms_compact(top_vals, top_idx, w, max_corners,
                                 min_distance)
@@ -87,6 +93,8 @@ def _nms_compact(top_vals: torch.Tensor, top_idx: torch.Tensor, w: int,
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Greedy min-distance selection over quality-ordered candidates +
     order-preserving compaction. Returns (pts, mask, n_selected_total).
+    Candidates (C,) for one frame or (N, C) for N streams, whose rounds run
+    together.
 
     Greedy selection == the lexicographically-first maximal independent set
     of the conflict graph under quality order, resolved in parallel rounds:
@@ -95,7 +103,8 @@ def _nms_compact(top_vals: torch.Tensor, top_idx: torch.Tensor, w: int,
     change nothing, so ``NMS_ROUNDS_PER_SYNC`` rounds run between two reads
     of the convergence flag."""
     global NMS_SYNCS
-    n_cand = top_vals.shape[0]
+    n_cand = top_vals.shape[-1]
+    lead = tuple(top_vals.shape[:-1])
     dev = top_vals.device
     cand_x = (top_idx % w).to(torch.float32)
     cand_y = torch.div(top_idx, w, rounding_mode="floor").to(torch.float32)
@@ -103,31 +112,35 @@ def _nms_compact(top_vals: torch.Tensor, top_idx: torch.Tensor, w: int,
     min_d2 = float(np.float32(min_distance * min_distance))
 
     valid = top_vals > 0.0
-    d2 = ((cand_x[:, None] - cand_x[None, :]) ** 2
-          + (cand_y[:, None] - cand_y[None, :]) ** 2)
+    d2 = ((cand_x[..., :, None] - cand_x[..., None, :]) ** 2
+          + (cand_y[..., :, None] - cand_y[..., None, :]) ** 2)
     rank = torch.arange(n_cand, device=dev)
     conflict = (d2 < min_d2) & (rank[None, :] < rank[:, None]) \
-        & valid[None, :]
+        & valid[..., None, :]
 
     unknown = valid
-    selected = torch.zeros(n_cand, dtype=torch.bool, device=dev)
+    selected = torch.zeros_like(valid)
     while True:
         for _ in range(NMS_ROUNDS_PER_SYNC):
             active = unknown | selected
-            higher_active = (conflict & active[None, :]).any(dim=1)
+            higher_active = (conflict & active[..., None, :]).any(dim=-1)
             newly = unknown & ~higher_active
             selected = selected | newly
-            suppressed = (conflict & selected[None, :]).any(dim=1)
+            suppressed = (conflict & selected[..., None, :]).any(dim=-1)
             unknown = unknown & ~newly & ~suppressed
         NMS_SYNCS += 1
         if not bool(unknown.any()):
             break
 
-    pos = torch.cumsum(selected.to(torch.int32), 0) - 1
+    pos = torch.cumsum(selected.to(torch.int32), -1) - 1
     take = selected & (pos < k)
     idx = torch.where(take, pos, torch.full_like(pos, k)).to(torch.int64)
-    pts = torch.zeros((k + 1, 2), dtype=torch.float32, device=dev)
-    pts.index_copy_(0, idx, torch.stack([cand_x, cand_y], dim=-1))
-    mask = torch.zeros(k + 1, dtype=torch.bool, device=dev)
-    mask.index_copy_(0, idx, take)
-    return pts[:k], mask[:k], selected.sum()
+    # Each kept candidate to its slot; the others all to the spare slot k.
+    pts = torch.zeros(lead + (k + 1, 2), dtype=torch.float32, device=dev)
+    pts.scatter_(-2, idx[..., None].expand(*idx.shape, 2),
+                 torch.stack([cand_x, cand_y], dim=-1))
+    mask = torch.zeros(lead + (k + 1,), dtype=torch.bool, device=dev)
+    mask.scatter_(-1, idx, take)
+    # Contiguous for K6 (a no-op for one frame).
+    return pts[..., :k, :].contiguous(), mask[..., :k].contiguous(), \
+        selected.sum(dim=-1)

@@ -29,6 +29,11 @@ and K6 stops each point once it has converged. Both give the same output
 without reading the device's convergence flag on the host.
 ``motion_prediction``'s initial guess (``init_pts``) comes from
 ``global_translation_prior`` below.
+
+``lk_planes`` and ``lk_track`` also take N streams at once, a leading
+axis on the grays (N, H, W) and on the points (N, P, ...): each filter of
+the pyramids and derivatives is then one launch for all N, and the ladder
+one K6 launch for all N * P points.
 """
 
 from __future__ import annotations
@@ -51,11 +56,12 @@ def lk_planes(prev_gray: torch.Tensor, curr_gray: torch.Tensor,
               max_level: int
               ) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
     """The planes K6 reads, per level 0 .. max_level: (3, Hl, Wl) stacks
-    [prev, d/dx, d/dy] and (Hl, Wl) current planes, rounded to bfloat16."""
+    [prev, d/dx, d/dy] and (Hl, Wl) current planes, rounded to bfloat16;
+    for (N, H, W) grays (N, 3, Hl, Wl) and (N, Hl, Wl)."""
     prev_planes = []
     for prev_l in build_pyramid(prev_gray, max_level):
         ix, iy = scharr_derivs(prev_l)
-        prev_planes.append(_bf16(torch.stack([prev_l, ix, iy])))
+        prev_planes.append(_bf16(torch.stack([prev_l, ix, iy], dim=-3)))
     curr_planes = [_bf16(c) for c in build_pyramid(curr_gray, max_level)]
     return prev_planes, curr_planes
 
@@ -69,7 +75,8 @@ def lk_track(prev_gray: torch.Tensor, curr_gray: torch.Tensor,
     """Track ``prev_pts`` from prev_gray to curr_gray.
 
     Args:
-      prev_gray/curr_gray: (H, W) float32 u8-domain grayscale.
+      prev_gray/curr_gray: (H, W) float32 u8-domain grayscale, or (S, H, W)
+        for S streams (every argument and result then has a leading S).
       prev_pts: (N, 2) float32 (x, y).
       pts_mask: (N,) bool validity of inputs.
       init_pts: optional (N, 2) initial position guesses.

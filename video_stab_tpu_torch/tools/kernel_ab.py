@@ -1,5 +1,6 @@
-"""Time K3, K5a / K5b and K6 against another version of their source, in
-one process on one card, and count where K3's and K6's clock cycles go.
+"""Time K1 / K2, K3, K5a / K5b and K6 against another version of their
+source, in one process on one card, and count where K3's and K6's clock
+cycles go.
 
     git show <commit>:video_stab_tpu_torch/csrc/lk.cu > build/old_lk.cu
     git show <commit>:video_stab_tpu_torch/csrc/features.cu \\
@@ -18,6 +19,11 @@ with it in turns (old, new, new, old) by ``chip_smoke.device_us``
 path's shapes: K6 at 540x960, 3 levels, 200 GFTT corners, eps 0.03 (and
 once at eps 1e-6, where most points run their whole step budget); K3 at
 540x960. An old ``vs_lk_track`` may lack the ``steps`` argument.
+
+``--old-warp`` takes another warp.cu and times its single-frame K1 and K2
+launches against the checkout's at the 1080p emit (16 frames cycled,
+cold in L2), in turns, after checking both bit for bit against each
+other.
 
 ``--old-traj`` takes the one-thread-per-output traj.cu (``vs_box_window(x,
 n, c, offset, window, pad, centered, r, out, stream)``) and calls it as its
@@ -203,6 +209,49 @@ def traj_ab(lib, kernels, dev):
                       f"{cs.launches_of(torch, call)} kernel launches")
 
 
+def warp_ab(lib, dev):
+    """K1 and K2's single-frame launch at the 1080p emit: another warp.cu
+    (its ``vs_warp_*_u8`` entries keep their names: the renaming skips
+    names with digits, and the library is loaded on its own) against the
+    checkout's, bit for bit, then in turns."""
+    from video_stab_tpu_torch.kernels import warp as kwarp
+    from video_stab_tpu_torch.ops.warp import invert_affine
+
+    frame = torch.from_numpy(cs.make_frames(1080, 1920, 1, seed=1)[0]).to(dev)
+    cold = [torch.roll(frame, 17 * k, dims=1).contiguous()
+            for k in range(cs.N_COLD)]
+    a = np.radians(0.3)
+    m = torch.tensor([[np.cos(a), -np.sin(a), 3.2],
+                      [np.sin(a), np.cos(a), -1.7]], dtype=torch.float32)
+    hm = torch.tensor([[1.0, 0.002, 3.0], [-0.002, 1.0, -2.0],
+                       [1e-6, 2e-6, 1.0]], dtype=torch.float32)
+    h, w = frame.shape[:2]
+    for label, name, minv, new in (
+            ("K1", "vs_warp_affine_u8", invert_affine(m).reshape(6),
+             kwarp.warp_affine_u8_cuda),
+            ("K2", "vs_warp_homography_u8", torch.linalg.inv(hm).reshape(9),
+             kwarp.warp_homography_u8_cuda)):
+        minv = minv.contiguous().to(dev)
+        fn = getattr(lib, name)
+        fn.argtypes = [_P, _I, _I, _I, _P, _I, _I, _P, _I, _F, _P]
+        out = torch.empty_like(frame)
+
+        def old(i=0, fn=fn, minv=minv, out=out, name=name):
+            _lib.check(fn(cold[i % cs.N_COLD].data_ptr(), h, w, 3,
+                          out.data_ptr(), h, w, minv.data_ptr(), 0, 0.0,
+                          _lib.stream_handle(dev)), name + "_old")
+            return out
+
+        def new_call(i=0, new=new, minv=minv):
+            return new(cold[i % cs.N_COLD], minv, h, w, 0)
+        same = torch.equal(old().clone(), new_call())
+        print(f"{label} 1080p emit: old and new bit for bit {same}")
+        assert same, label
+        in_turns(f"{label} 1080p emit", ("old", old, ["warp_tile_kernel_old"],
+                                          1),
+                 ("new", new_call, ["warp_tile_kernel<"], 1))
+
+
 def in_turns(label, old, new):
     """(name, fn, symbols, launches per call) of the old and the new
     kernel, timed old, new, new, old."""
@@ -235,6 +284,7 @@ def main() -> int:
     ap.add_argument("--old-lk", type=Path)
     ap.add_argument("--old-features", type=Path)
     ap.add_argument("--old-traj", type=Path)
+    ap.add_argument("--old-warp", type=Path)
     ap.add_argument("--old-features-launches", type=int, default=1,
                     help="kernel launches per call of the old K3")
     ap.add_argument("--cycles", action="store_true")
@@ -258,6 +308,9 @@ def main() -> int:
     if args.old_traj:
         lib, kernels, _ = build_variant(args.old_traj, "_old")
         traj_ab(lib, kernels, dev)
+    if args.old_warp:
+        lib, _, _ = build_variant(args.old_warp, "_old")
+        warp_ab(lib, dev)
     if args.old_lk:
         lib, kernels, text = build_variant(args.old_lk, "_old")
         for eps in (0.03, 1e-6):
