@@ -102,6 +102,28 @@ Phases (any failure is an uncaught exception and a nonzero exit):
       8 more (sync debug mode), peak memory; then ``reset_stream(3)`` and
       the ticks until stream 3 emits again while the others never stop;
       then the batched homography route (the ``{"multistream": ...}``
+      line);
+   h. (run last) the application, ``video_stab_tpu_torch/io/runner.py``:
+      ``StabilizerApp`` on ``configs/selftest.yaml`` (the port's
+      ``load_config``) with a 1080p synthetic source and the tracker on
+      (the seeded untrained detector at 640x384), through the threaded
+      frame graph into a ``CallbackSink`` until 96 frames came out: frames
+      out, warm-up frames, the p50 ms of the ``fused_chain`` and ``track``
+      stages, the detector's mean ms, the app's frames/s, peak memory and
+      K1 / K3 / K4 head / K4 tail / K6 launches per output frame; hot
+      reload from ``configs/default.yaml`` (every toggle off: the output
+      listens to "source", no kernel launches) to the stabilizer on and
+      back, three times, by rewriting the YAML file (each cycle's peak
+      memory may not grow over the first's by more than one chain's frame
+      ring); ``_process_frame`` with the ``entry()`` parameters against a
+      ``ProcessingChain`` on 32 frames, bit for bit, and ``stop()``
+      draining exactly the queued frames; the CenterNet detector with the
+      bundled weights on the card against the CPU at 640x384 (float32:
+      within 1e-4 and identical valid detections; bfloat16: within 2e-2
+      of each head's largest magnitude) and its bfloat16 device ms per
+      frame; the CLI in subprocesses (``selftest``, ``stabilize`` and
+      ``offline --method box`` on a 640x360 .avi), each exit 0, and the
+      offline call in process for K5b's launches (the ``{"app": ...}``
       line).
 5. Steady-state ms/frame of the chain, the bare ``Stabilizer`` and the
    homography ``Stabilizer`` at 1080p (CUDA events); offline frames/s of
@@ -126,7 +148,9 @@ Phases (any failure is an uncaught exception and a nonzero exit):
 Then one ``{"kernels": [...]}`` line: per kernel the phase-3 numbers, the
 launches of each phase-4 path and its launches per frame (per tick of 8
 frames on the multi-stream runs; K1, K2, K3 and K6 also carry their
-``multistream`` numbers at N = 8 and their launches per tick). Its ``ms``,
+``multistream`` numbers at N = 8 and their launches per tick; the app
+runs of phase 4h count per output frame, per chain step over the reload
+cycles, and K5b per frame of the CLI's offline clip). Its ``ms``,
 ``plain_ms`` and ``library_ms`` are device times, so they compare with one
 another; ``call_ms``, ``plain_call_ms`` and ``library_call_ms`` are the
 same calls' times with the host's work. The line before
@@ -2544,6 +2568,442 @@ def small_reference_multistream(torch) -> None:
                       share=share)
 
 
+# Phase 4h: the application (``io/runner.py:StabilizerApp``), the detector
+# and the CLI on the card.
+APP_FRAMES = 96                  # output frames of the 1080p app run
+APP_RELOAD_CYCLES = 3
+WIRING_FRAMES = 32
+DETECTOR_FRAMES = 4
+DETECTOR_TIMED = 20
+CLI_CLIP_FRAMES = 48             # the CLI's 640x360 clip
+APP_H, APP_W = 1080, 1920        # the synthetic source and the frames
+# The kernels the selftest config runs: the emit warp, GFTT, the full
+# enhancer's head and tail, LK.
+APP_KERNELS = ("warp_affine_u8", "corner_response", "enhance_head",
+               "enhance_tail", "lk_track")
+
+
+def _repo_path(*parts) -> str:
+    import os
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), *parts)
+
+
+def _mib(n: float) -> float:
+    return n / 2 ** 20
+
+
+def _wait(cond, seconds: float, what: str) -> None:
+    deadline = time.monotonic() + seconds
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"phase 4h: timed out waiting for {what}")
+        time.sleep(0.02)
+
+
+def app_full_width(torch, tracker: bool = True, frames_in=None,
+                   source_fps: float = 0.0) -> tuple[dict, dict]:
+    """Phase 4h.1: ``configs/selftest.yaml`` (the port's ``load_config``)
+    with a 1080p synthetic source and the tracker on (or, to show its
+    cost, off), through the threaded frame graph into a ``CallbackSink``
+    until APP_FRAMES frames came out, then ``stop()`` (its drain
+    included). With ``frames_in`` (numpy frames, cycled) no thread runs:
+    ``_process_frame`` is called in this thread, to show what the threads
+    cost. With ``source_fps`` the synthetic source is replaced by one that
+    delivers ``make_frames`` frames at that rate, as a live camera does,
+    where the JAX package's ``SyntheticSource`` free-runs."""
+    import dataclasses
+
+    from video_stab_tpu_torch.io.runner import StabilizerApp
+    from video_stab_tpu_torch.io.sinks import CallbackSink
+    from video_stab_tpu_torch.utils.config import load_config
+
+    cfg = load_config(_repo_path("configs", "selftest.yaml"))
+    cfg = dataclasses.replace(
+        cfg, video_source=f"synthetic:{APP_W}x{APP_H}",
+        mode=dataclasses.replace(cfg.mode, tracker_enabled=tracker))
+    delivered = {"n": 0, "last": None}
+
+    def receive(frame):
+        delivered["n"] += 1
+        delivered["last"] = frame
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    zero_counts()
+    app = StabilizerApp(cfg, sink=CallbackSink(receive),
+                        max_frames=APP_FRAMES)
+    if source_fps:
+        from video_stab_tpu_torch.io.sources import (SourceParams,
+                                                     SyntheticSource)
+        pool = make_frames(APP_H, APP_W, 32)
+        start = []
+
+        def paced(i):
+            start.append(time.perf_counter()) if not start else None
+            delay = start[0] + i / source_fps - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            return pool[i % len(pool)]
+        app.source = app.graph.pipeline("source").source = SyntheticSource(
+            SourceParams(source="paced"), height=APP_H, width=APP_W,
+            frame_fn=paced)
+    t0 = time.perf_counter()
+    if frames_in is None:
+        app.run(duration=180.0)
+    else:
+        i = 0
+        while app._frames_out < APP_FRAMES:
+            out = app._process_frame(frames_in[i % len(frames_in)])
+            i += 1
+            if out is not None:
+                receive(out)
+        app.stop()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak = _mib(torch.cuda.max_memory_allocated() - base)
+    frames = app._frames_out
+    stages = app.metrics.timer.summary()
+    stamps = app.metrics.fps._stamps
+    fps = (len(stamps) - 1) / (stamps[-1] - stamps[0])
+    per_frame = {k: launches[k] / frames for k in APP_KERNELS}
+    last = delivered["last"]
+    out = dict(
+        frames_out=frames, frames_delivered=delivered["n"],
+        warmup_frames=app.metrics.counters["warmup_frames"],
+        fused_chain_p50_ms=stages["fused_chain"]["p50_ms"],
+        app_fps=fps, seconds=seconds, peak_mib_above_start=peak,
+        launches_per_output_frame=per_frame)
+    if tracker:
+        out.update(track_p50_ms=stages["track"]["p50_ms"],
+                   detector_mean_ms=app._tracker.mean_inference_ms,
+                   detections_run=app._tracker._frame_count)
+    label = "app selftest 1080p" + (" + tracker" if tracker else "") + (
+        ", no threads" if frames_in is not None else "") + (
+        f", source paced at {source_fps:g} frames/s" if source_fps else "")
+    print(f"{label}: {frames} frames out ({delivered['n']} delivered to "
+          f"the sink, {out['warmup_frames']} warm-up) in {seconds:.1f} s; "
+          f"fused_chain p50 {out['fused_chain_p50_ms']:.3f} ms; "
+          + (f"track p50 {out['track_p50_ms']:.3f} ms, detector mean "
+             f"{out['detector_mean_ms']:.3f} ms over "
+             f"{out['detections_run']} detections; " if tracker else "")
+          + f"{fps:.2f} frames/s; peak {peak:.1f} MiB above the start; "
+          f"launches per output frame {per_frame}")
+    assert frames >= APP_FRAMES and delivered["n"] > 0, out
+    assert tuple(last.shape) == (APP_H, APP_W, 3) and last.dtype == np.uint8
+    assert float(np.asarray(last, np.float64).std()) > 5.0
+    assert not tracker or app._tracker._frame_count > 0
+    assert all(launches[k] > 0 for k in APP_KERNELS), launches
+    return out, launches
+
+
+def app_hot_reload(torch) -> tuple[dict, dict]:
+    """Phase 4h.2: ``configs/default.yaml`` (every toggle off) with a 1080p
+    synthetic source, written to a temporary file; the output listens to
+    "source" and no kernel launches. Rewriting the file with the
+    stabilizer on (r = 15) reloads it, the output switches to "processed"
+    and K1 / K3 / K6 launch; writing it back returns to "source". Three
+    cycles; the peak device memory of each may not grow by more than one
+    chain's frame ring over the first's."""
+    import dataclasses
+    import gc
+    import os
+    import tempfile
+
+    from video_stab_tpu_torch.io.runner import run_app
+    from video_stab_tpu_torch.io.sinks import NullSink
+    from video_stab_tpu_torch.utils.config import load_config, save_config
+
+    off = load_config(_repo_path("configs", "default.yaml"))
+    off = dataclasses.replace(off, video_source=f"synthetic:{APP_W}x{APP_H}")
+    on = dataclasses.replace(
+        off, mode=dataclasses.replace(off.mode, stabilizer_enabled=True),
+        stabilizer=dataclasses.replace(off.stabilizer, smoothing_radius=15))
+    ring = _mib((on.stabilizer.effective_radius + 1) * APP_H * APP_W * 3)
+    launches = dict.fromkeys(kernel_modules(), 0)
+    cycles = []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "app.yaml")
+        stamp = [time.time()]
+
+        def write(cfg):
+            # Whole files only, as an editor saves: the watcher polls every
+            # 50 ms and must not parse a half-written one.
+            save_config(cfg, path + ".tmp")
+            stamp[0] += 5.0        # a distinct mtime on any clock
+            os.utime(path + ".tmp", (stamp[0], stamp[0]))
+            os.replace(path + ".tmp", path)
+
+        write(off)
+        sink = NullSink()
+        radius = on.stabilizer.effective_radius
+        steps = 0
+        torch.cuda.synchronize()
+        gc.collect()
+        base = torch.cuda.memory_allocated()
+        app = run_app(path, sink=sink)
+        app.watcher.poll_interval = 0.05
+        output = app.graph.pipeline("output")
+
+        def chain_steps():
+            return app.metrics.timer._samples.get("fused_chain", [])
+        zero_counts()
+        app.start()
+        try:
+            _wait(lambda: sink.count >= 10, 60.0, "passthrough frames")
+            assert output.listen_to == "source" and app.chain is None
+            assert sum(read_counts().values()) == 0, read_counts()
+            for cycle in range(APP_RELOAD_CYCLES):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                zero_counts()
+                steps0 = len(chain_steps())
+                write(on)
+                _wait(lambda: app.metrics.counters["config_reloads"]
+                      == 2 * cycle + 1, 30.0, "the reload")
+                assert output.listen_to == "processed"
+                # Past the warm-up: the chain has emitted 8 frames.
+                _wait(lambda: len(chain_steps()) >= steps0 + radius + 8,
+                      120.0, "processed frames")
+                write(off)
+                _wait(lambda: app.metrics.counters["config_reloads"]
+                      == 2 * cycle + 2, 30.0, "the reload back")
+                assert output.listen_to == "source"
+                # The processing thread has moved on to frames without the
+                # chain, so it holds no reference to the old one.
+                f0 = app.metrics.counters["frames_out"]
+                _wait(lambda: app.metrics.counters["frames_out"] >= f0 + 3,
+                      60.0, "passthrough frames after the switch back")
+                steps += len(chain_steps()) - steps0
+                torch.cuda.synchronize()
+                gc.collect()
+                got = read_counts()
+                for k, n in got.items():
+                    launches[k] += n
+                cycles.append(dict(
+                    peak_mib_above_start=_mib(
+                        torch.cuda.max_memory_allocated() - base),
+                    allocated_mib_after=_mib(
+                        torch.cuda.memory_allocated() - base),
+                    launches=got))
+                print(f"app hot reload cycle {cycle}: peak "
+                      f"{cycles[-1]['peak_mib_above_start']:.1f} MiB above "
+                      f"the start, {cycles[-1]['allocated_mib_after']:.1f} "
+                      f"MiB held after the switch back; launches {got}")
+                assert all(got[k] > 0 for k in ("warp_affine_u8",
+                                                 "corner_response",
+                                                 "lk_track")), got
+        finally:
+            app.stop()
+    peaks = [c["peak_mib_above_start"] for c in cycles]
+    print(f"app hot reload: peaks {peaks} MiB, one ring {ring:.1f} MiB, "
+          f"{app.metrics.counters['config_reloads']} reloads")
+    assert max(peaks) - peaks[0] <= ring, (peaks, ring)
+    assert cycles[-1]["allocated_mib_after"] <= ring, cycles
+    return dict(cycles=cycles, ring_mib=ring, chain_steps=steps,
+                reloads=app.metrics.counters["config_reloads"]), launches
+
+
+def app_wiring(torch, pool) -> tuple[dict, dict]:
+    """Phase 4h.3: ``StabilizerApp._process_frame`` (tracker off, the
+    ``entry()`` parameters) on WIRING_FRAMES frames against a
+    ``ProcessingChain`` with the same parameters and seed on the same
+    frames: bit for bit; then ``stop()`` drains exactly the chain's queued
+    frames into the sink, each equal to the twin's ``flush()``."""
+    from video_stab_tpu_torch.core.chain import ProcessingChain
+    from video_stab_tpu_torch.io.runner import StabilizerApp
+    from video_stab_tpu_torch.io.sinks import CallbackSink
+    from video_stab_tpu_torch.utils.config import AppConfig
+
+    kw = entry_params()
+    cfg = AppConfig(video_source=f"synthetic:{APP_W}x{APP_H}",
+                    mode=kw["mode"], enhancer=kw["enhancer"],
+                    roll_correction=kw["roll"],
+                    stabilizer=kw["stabilizer"])
+    drained = []
+    app = StabilizerApp(cfg, sink=CallbackSink(drained.append))
+    frames = [pool[i].cpu().numpy() for i in range(WIRING_FRAMES)]
+    zero_counts()
+    got = [app._process_frame(f) for f in frames]
+    queued = app.chain._frames_in - app.chain._emitted
+    app.stop()
+    torch.cuda.synchronize()
+    launches = read_counts()          # the app's own, before the twin's
+    twin = ProcessingChain(**kw)
+    n_out = 0
+    for i, f in enumerate(frames):
+        want = twin.process(f)
+        assert (got[i] is None) == (want is None), i
+        if want is not None:
+            assert np.array_equal(got[i], want), f"frame {i} differs"
+            n_out += 1
+    assert len(drained) == queued > 0, (len(drained), queued)
+    for f in drained:
+        assert np.array_equal(f, twin.flush())
+    assert twin.flush() is None
+    print(f"app wiring (entry() params): {n_out} frames of "
+          f"_process_frame equal to ProcessingChain bit for bit, "
+          f"{len(drained)} drained by stop() equal to its flush()")
+    return dict(frames_equal=n_out, drained=len(drained)), launches
+
+
+def app_detector(torch, dev) -> dict:
+    """Phase 4h.4: the detector with the bundled weights on the card
+    against the same module on the CPU, on DETECTOR_FRAMES ``make_frames``
+    frames resized to 640x384. float32: the heads within 1e-4 and the
+    valid detections identical (at a threshold in the widest gap of the
+    CPU's best scores, so none lies within 1e-4 of it). bfloat16: the
+    heads within 2e-2 of each head's largest magnitude (bfloat16 keeps 8
+    bits; the trained maps reach |x| ~ 17, where 2e-2 absolute is below
+    one bfloat16 step). Then the bfloat16 detector's device ms per frame
+    (CUDA events, batch 1)."""
+    import cv2
+
+    from video_stab_tpu_torch.models import detector as tdet
+
+    frames = make_frames(APP_H, APP_W, DETECTOR_FRAMES, seed=SEED + 7)
+    x = np.stack([cv2.resize(f, (640, 384)) for f in frames])
+    x = torch.from_numpy(x.astype(np.float32))
+    out = {}
+    for name, dtype in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+        cfg = tdet.DetectorConfig(dtype=dtype)
+        cpu = tdet.load_detector(tdet.bundled_weights_path(), cfg,
+                                 device="cpu")
+        card = tdet.load_detector(tdet.bundled_weights_path(), cfg,
+                                  device=dev)
+        with torch.no_grad():
+            want = cpu(x / 127.5 - 1.0)
+            got = card(x.to(dev) / 127.5 - 1.0)
+        errs = {}
+        for head in ("heatmap", "size", "offset"):
+            a, b = want[head], got[head].cpu()
+            err = float((a - b).abs().max())
+            scale = float(a.abs().max()) if name == "bfloat16" else 1.0
+            errs[head] = err
+            assert err <= (1e-4 if name == "float32" else 2e-2) * scale, \
+                (name, head, err, scale)
+        row = dict(max_abs_err=errs)
+        if name == "float32":
+            top = np.sort(tdet.detect(cpu, x, 0.0, 100)["score"].numpy()
+                          .reshape(-1))[::-1][:40]
+            gaps = top[:-1] - top[1:]
+            i = 4 + int(np.argmax(gaps[4:]))    # >= 5 valid detections
+            thr = float((top[i] + top[i + 1]) / 2)
+            dw = tdet.detect(cpu, x, thr, 100)
+            dg = {k: v.cpu() for k, v in
+                  tdet.detect(card, x.to(dev), thr, 100).items()}
+            assert float(np.abs(dw["score"].numpy() - thr).min()) > 1e-4
+            assert torch.equal(dw["valid"], dg["valid"])
+            v = dw["valid"]
+            assert torch.equal(dw["class_id"][v], dg["class_id"][v])
+            box_err = float((dw["bbox"][v] - dg["bbox"][v]).abs().max())
+            assert box_err <= 1e-3, box_err
+            row.update(threshold=thr, valid=int(v.sum()),
+                       bbox_max_abs_err=box_err)
+        else:
+            x1 = x[:1].to(dev)
+            for _ in range(3):
+                tdet.detect(card, x1, 0.5, 100)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(DETECTOR_TIMED):
+                tdet.detect(card, x1, 0.5, 100)
+            end.record()
+            end.synchronize()
+            row["device_ms_per_frame"] = \
+                start.elapsed_time(end) / DETECTOR_TIMED
+        print(f"detector {name}, card vs CPU at 640x384: {row}")
+        out[name] = row
+    return out
+
+
+def app_cli(torch) -> tuple[dict, dict]:
+    """Phase 4h.5: the CLI in subprocesses (``selftest``; ``stabilize`` and
+    ``offline --method box`` on a 640x360 .avi that cv2 writes), each of
+    which must exit 0; then the same ``offline --method box`` in this
+    process, for K5b's launch count."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import cv2
+
+    from video_stab_tpu_torch import cli
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        clip = os.path.join(tmp, "in.avi")
+        w = cv2.VideoWriter(clip, cv2.VideoWriter_fourcc(*"MJPG"), 30.0,
+                            (640, 360))
+        for f in make_frames(360, 640, CLI_CLIP_FRAMES, seed=SEED + 3):
+            w.write(f)
+        w.release()
+        runs = {"selftest": ["selftest"],
+                "stabilize": ["stabilize", clip,
+                              os.path.join(tmp, "stab.avi")],
+                "offline box": ["offline", clip,
+                                os.path.join(tmp, "off.avi"), "--method",
+                                "box"]}
+        for name, argv in runs.items():
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "video_stab_tpu_torch.cli", *argv],
+                cwd=_repo_path(), capture_output=True, text=True,
+                timeout=300)
+            seconds = time.perf_counter() - t0
+            last = proc.stdout.strip().splitlines()[-1] if proc.stdout \
+                else ""
+            print(f"cli {name}: exit {proc.returncode} in {seconds:.1f} s: "
+                  f"{last}")
+            assert proc.returncode == 0, proc.stderr[-4000:]
+            out[name] = dict(seconds=seconds, result=json.loads(last))
+        assert out["selftest"]["result"]["selftest"] == "ok"
+        assert out["stabilize"]["result"]["frames_out"] == CLI_CLIP_FRAMES
+        zero_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(runs["offline box"])
+        torch.cuda.synchronize()
+        launches = read_counts()
+    print(f"cli offline box in process: exit {rc}, launches {launches}")
+    assert rc == 0 and launches["box_filter_centered"] > 0, launches
+    return out, launches
+
+
+def run_app_phase(torch, dev) -> tuple[dict, dict, dict]:
+    """Phase 4h, the application on the card. -> (the {"app": ...}
+    numbers, launches by run, frames by run)."""
+    pool = torch.from_numpy(make_frames(APP_H, APP_W, WIRING_FRAMES)).to(dev)
+    full, full_launches = app_full_width(torch)
+    no_tracker, _ = app_full_width(torch, tracker=False)
+    no_threads, _ = app_full_width(torch, tracker=False,
+                                   frames_in=make_frames(APP_H, APP_W, 32))
+    paced, _ = app_full_width(torch, source_fps=30.0)
+    reload, reload_launches = app_hot_reload(torch)
+    assert reload["chain_steps"] > 0
+    wiring, wiring_launches = app_wiring(torch, pool)
+    del pool
+    detector = app_detector(torch, dev)
+    cli_runs, cli_launches = app_cli(torch)
+    numbers = dict(full_width=full, full_width_no_tracker=no_tracker,
+                   full_width_no_threads=no_threads,
+                   full_width_source_30fps=paced,
+                   hot_reload=reload, wiring=wiring,
+                   detector=detector, cli=cli_runs)
+    by_run = {"app selftest 1080p + tracker": full_launches,
+              "app hot reload (3 cycles)": reload_launches,
+              "app wiring (entry())": wiring_launches,
+              "cli offline box (48 frames)": cli_launches}
+    frames = {"app selftest 1080p + tracker": full["frames_out"],
+              "app hot reload (3 cycles)": reload["chain_steps"],
+              "app wiring (entry())": WIRING_FRAMES,
+              "cli offline box (48 frames)": CLI_CLIP_FRAMES}
+    return numbers, by_run, frames
+
+
 class Lap:
     """Prints the seconds each phase took (host clock), for the script's
     own time budget."""
@@ -2626,6 +3086,10 @@ def main() -> int:
     small_reference_configs(torch)
     small_reference_multistream(torch)
     lap("phase 5b")
+    app_numbers, app_paths, app_frames = run_app_phase(torch, dev)
+    lap("phase 4h")
+    by_path.update(app_paths)
+    frames.update(app_frames)
 
     meta = {
         "warp_affine_u8": ("video_stab_tpu_torch/csrc/warp.cu",
@@ -2704,6 +3168,7 @@ def main() -> int:
     print(json.dumps({"configs": config_numbers}))
     print(json.dumps({"variants": variant_numbers}))
     print(json.dumps({"multistream": ms_numbers}))
+    print(json.dumps({"app": app_numbers}))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -1150,3 +1150,76 @@ def test_multistream_on_the_card_matches_cpu(dev, kw):
         else:
             assert (k6, k1) == (1, 1)
             assert k3 == (1 if t % p.redetect_interval == 0 else 0)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+def test_detector_on_the_card_matches_the_cpu(dev, dtype, tol):
+    """The CenterNet detector with the bundled weights (cuDNN on the card,
+    oneDNN on the CPU) on 2 textured 384x640 frames: each head within
+    ``tol`` of its largest magnitude in bfloat16, absolutely in float32;
+    the decode's valid detections identical in float32."""
+    from video_stab_tpu_torch.models import detector as tdet
+    cfg = tdet.DetectorConfig(dtype=getattr(torch, dtype))
+    cpu = tdet.load_detector(tdet.bundled_weights_path(), cfg,
+                             device="cpu")
+    card = tdet.load_detector(tdet.bundled_weights_path(), cfg, device=dev)
+    x = torch.from_numpy(np.stack([
+        np.repeat(_textured(384, 640, s)[..., None], 3, -1)
+        for s in (1, 2)]))
+    with torch.no_grad():
+        want, got = cpu(x / 127.5 - 1.0), card(x.to(dev) / 127.5 - 1.0)
+    for head in ("heatmap", "size", "offset"):
+        scale = float(want[head].abs().max()) if dtype == "bfloat16" else 1
+        err = float((want[head] - got[head].cpu()).abs().max())
+        assert err <= tol * scale, (head, err, scale)
+    if dtype == "float32":
+        # The threshold sits in the widest gap between the CPU's 5th to
+        # 40th best scores, so no score is near it.
+        top = tdet.detect(cpu, x, 0.0, 100)["score"].reshape(-1).sort(
+            descending=True).values[:40]
+        i = 4 + int((top[4:-1] - top[5:]).argmax())
+        thr = float(top[i] + top[i + 1]) / 2
+        a, b = tdet.detect(cpu, x, thr, 100), tdet.detect(card, x, thr, 100)
+        assert float((a["score"] - thr).abs().min()) > 1e-4
+        assert torch.equal(a["valid"], b["valid"].cpu())
+        v = a["valid"]
+        assert torch.equal(a["class_id"][v], b["class_id"].cpu()[v])
+        assert float((a["bbox"][v] - b["bbox"].cpu()[v]).abs().max()) <= 1e-3
+
+
+def test_app_runs_on_the_card(dev):
+    """A small app (enhance -> stabilize, the tracker on) on the card
+    through the threaded frame graph: frames delivered, and the chain's
+    kernels launched."""
+    import time
+
+    from video_stab_tpu_torch.core.params import (EnhancerParams,
+                                                  ModeParams,
+                                                  StabilizerParams)
+    from video_stab_tpu_torch.io.runner import StabilizerApp
+    from video_stab_tpu_torch.io.sinks import NullSink
+    from video_stab_tpu_torch.kernels import enhance as kenh
+    from video_stab_tpu_torch.kernels import lk as klk
+    from video_stab_tpu_torch.kernels import warp as kwarp
+    from video_stab_tpu_torch.models.tracker import TrackerParams
+    from video_stab_tpu_torch.utils.config import AppConfig
+    cfg = AppConfig(
+        video_source="synthetic:320x192",
+        mode=ModeParams(enhancer_enabled=True, stabilizer_enabled=True,
+                        tracker_enabled=True),
+        enhancer=EnhancerParams(brightness=5.0, contrast=1.1, gamma=0.9),
+        stabilizer=StabilizerParams(smoothing_radius=5, analysis_width=160,
+                                    analysis_height=96),
+        tracker=TrackerParams(processing_width=160, processing_height=96))
+    before = (kenh.LAUNCHES, klk.LAUNCHES, kwarp.LAUNCHES)
+    sink = NullSink()
+    app = StabilizerApp(cfg, sink=sink)
+    assert app.device.type == "cuda" and app._tracker.device.type == "cuda"
+    app.start()
+    deadline = time.monotonic() + 60.0
+    while sink.count < 10 and time.monotonic() < deadline:
+        time.sleep(0.05)
+    app.stop()
+    assert sink.count >= 10
+    after = (kenh.LAUNCHES, klk.LAUNCHES, kwarp.LAUNCHES)
+    assert all(a > b for a, b in zip(after, before)), (before, after)

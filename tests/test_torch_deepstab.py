@@ -119,8 +119,8 @@ def test_net_matches_flax(hw):
 def test_seeded_fallback(monkeypatch):
     monkeypatch.setattr(tdeep, "BUNDLED_WEIGHTS", "/nonexistent.msgpack")
     p = tparams.StabilizerParams(deep_stabilization=True, seed=5)
-    a = tdeep.resolve_deepstab_weights(p)
-    b = tdeep.resolve_deepstab_weights(p)
+    a = tdeep.resolve_deepstab_weights(p, "cpu")
+    b = tdeep.resolve_deepstab_weights(p, "cpu")
     for (ka, va), (kb, vb) in zip(a.state_dict().items(),
                                   b.state_dict().items()):
         assert ka == kb and torch.equal(va, vb)
@@ -128,8 +128,15 @@ def test_seeded_fallback(monkeypatch):
     x = torch.rand(1, 48, 64, 2) * 255
     assert torch.equal(a(x), torch.zeros(1, 3))    # zero output kernel
     c = tdeep.resolve_deepstab_weights(
-        tparams.StabilizerParams(deep_stabilization=True, seed=6))
+        tparams.StabilizerParams(deep_stabilization=True, seed=6), "cpu")
     assert not torch.equal(a.convs[0], c.convs[0])
+
+
+def test_weights_default_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="use_cuda"):
+        tdeep.resolve_deepstab_weights(
+            tparams.StabilizerParams(deep_stabilization=True))
 
 
 def _float32_nets(monkeypatch):

@@ -107,6 +107,19 @@ def test_port_never_imports_jax():
         "import video_stab_tpu_torch.models.flax_msgpack\n"
         "import video_stab_tpu_torch.parallel\n"
         "import video_stab_tpu_torch.parallel.multistream\n"
+        "import video_stab_tpu_torch.models.detector\n"
+        "import video_stab_tpu_torch.models.tracker\n"
+        "import video_stab_tpu_torch.utils\n"
+        "import video_stab_tpu_torch.utils.telemetry\n"
+        "import video_stab_tpu_torch.utils.config\n"
+        "import video_stab_tpu_torch.utils.checkpoint\n"
+        "import video_stab_tpu_torch.io\n"
+        "import video_stab_tpu_torch.io.sources\n"
+        "import video_stab_tpu_torch.io.sinks\n"
+        "import video_stab_tpu_torch.io.channels\n"
+        "import video_stab_tpu_torch.io.control\n"
+        "import video_stab_tpu_torch.io.runner\n"
+        "import video_stab_tpu_torch.cli\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'jaxlib',\n"
         "                                            'video_stab_tpu.'))\n"

@@ -18,8 +18,12 @@ path, with a msgpack reader of its own.
 Entry points: ``core.stabilizer.Stabilizer`` (streaming, similarity or
 homography model, every detector, deep stabilization, the virtual
 canvas), ``core.legacy.LegacyStabilizer`` (the legacy deterministic
-stabilizer), ``core.chain.ProcessingChain`` (the fused serving chain) and
-``offline.stabilize_clip`` (whole-clip stabilization).
+stabilizer), ``core.chain.ProcessingChain`` (the fused serving chain),
+``offline.stabilize_clip`` (whole-clip stabilization),
+``parallel.MultiStreamStabilizer`` (lockstep streams), and the
+application: ``io.runner.StabilizerApp`` (``vstab-torch run``: the YAML
+config with hot reload over the frame graph, with the object tracker of
+``models.tracker``) and the CLI (``cli.py``).
 
 Importing the package turns TF32 off for matmuls and cuDNN convolutions:
 the filters, resizes and LK's normal equations need full float32.

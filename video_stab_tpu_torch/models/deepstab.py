@@ -28,6 +28,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from video_stab_tpu_torch import pick_device
 from video_stab_tpu_torch.models import flax_msgpack
 
 # The JAX package's bundled checkpoint, read by path as a data file.
@@ -158,7 +159,7 @@ def resolve_deepstab_weights(params, device: Optional[torch.device] = None
     path = params.model_path or (BUNDLED_WEIGHTS
                                  if os.path.exists(BUNDLED_WEIGHTS) else "")
     net = load_deepstab(path) if path else seeded_deepstab(params.seed)
-    return net.to(device or "cpu")
+    return net.to(pick_device(True) if device is None else device)
 
 
 def predict_transform(net: DeepStabNet, prev_gray: torch.Tensor,
