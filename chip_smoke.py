@@ -28,8 +28,9 @@ Phases (any failure is an uncaught exception and a nonzero exit):
    between CUDA events (host work included); the plain version's device
    time (every kernel it launches) and call time the same two ways;
    ``bound_us``, the larger of the bytes (each input read once, each
-   output written once) over 3.35 TB/s and the float32 operations over
-   67 TFLOP/s, with ``bound_share`` = bound / device time; for K5b its
+   output written once) over 3.35 TB/s and the operations, counted as
+   instructions, over the issue rate (132 SMs x 128 lanes x 1.98 GHz,
+   ~33.4e12 a second), with ``bound_share`` = bound / device time; for K5b its
    one-call yardstick, ``avg_pool1d``, timed the same two ways; for K5a
    and K5b, which one launch bounds, at (240, 3), (240, 9) and (18000, 3):
    ``launch_floor_us``, the device time of an empty kernel with the same
@@ -40,8 +41,18 @@ Phases (any failure is an uncaught exception and a nonzero exit):
    ``latency_floor_us`` (the most steps a point ran times a stated
    per-step floor in cycles, plus the templates, at the SM clock
    ``nvidia-smi`` reads while K6 runs) with ``floor_share``. K4's head
-   (u8 -> f32) and tail (f32 -> u8 + gray) modes are checked and timed the
-   same way at 1080x1920x3. The legacy stabilizer's shapes are held and
+   (u8 -> f32) and tail (f32 -> u8 + gray) modes are checked bit for bit
+   and timed the same way at 1080x1920x3, each with its registers and
+   spills (``nvcc -Xptxas -v``); the tail also with its vector loop's
+   instructions per value (``cuobjdump -sass``, ``sass_loop``) and the
+   ``issue_floor_us`` they give at the SM clock read while it runs (a
+   reading of the kernel's code, not its bound, which counts the
+   function's own operations), its time with gamma off and with no gray,
+   and ``sweep_tail``: the tail against its plain version, a true
+   division, over every float32 in [0, 255] and 1e6 values in [-1e4,
+   1e4], for gamma 0.9 and 1.2 (any difference fails). K1-K4, the head
+   and the tail included, must stay bound by bytes. The
+   legacy stabilizer's shapes are held and
    timed the same way: K6 over 4 levels of a real 1080p pair's
    full-resolution gray (200 GFTT corners at min_distance 30, win 21, 30
    iterations, eps 0.01) and K3 at 1080x1920 (``legacy_shape`` in their
@@ -162,6 +173,7 @@ from __future__ import annotations
 
 import collections
 import json
+import re
 import subprocess
 import sys
 import time
@@ -263,18 +275,32 @@ def make_frames(h: int, w: int, n: int, seed: int = SEED) -> np.ndarray:
 
 # The yardsticks of phase 3: the H100 SXM data sheet's rates (at 700 W).
 HBM_BYTES_PER_S = 3.35e12        # device memory
-F32_FLOPS_PER_S = 67e12          # float32 outside the tensor cores
+SM_COUNT, LANES_PER_SM = 132, 128
+BOOST_CLOCK_HZ = 1.98e9          # the H100 SXM's top SM clock
+# One instruction a lane and clock on every SM: ~33.4e12 a second. (The
+# data sheet's 67 TFLOP/s of float32 counts an FMA as two operations; a
+# count of instructions goes over the issue rate.)
+ISSUE_PER_S = SM_COUNT * LANES_PER_SM * BOOST_CLOCK_HZ
 N_CALLS = 64                     # calls per device-time and call-time sample
 N_COLD = 16                      # distinct 1080p inputs cycled (> 50 MB L2)
 
 
-def bound_us(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_us(nbytes: float, ops: float) -> tuple[float, str]:
     """The least time the card could take: the larger of the bytes (each
     input read once, each output written once) over the memory rate and
-    the float32 operations over the peak rate, with which of the two."""
+    the operations (counted as instructions, one a lane) over the issue
+    rate, 132 SMs x 128 lanes x 1.98 GHz = ISSUE_PER_S, ~33.4e12 a
+    second; with which of the two."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e6
-    t_ops = flops / F32_FLOPS_PER_S * 1e6
+    t_ops = ops / ISSUE_PER_S * 1e6
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def issue_floor_us(instructions: float, sm_clock_mhz: float) -> float:
+    """The time ``instructions`` (one a lane) take at one a lane and clock
+    on every SM, at the SM clock read while the kernel runs."""
+    return instructions / (SM_COUNT * LANES_PER_SM * sm_clock_mhz * 1e6) \
+        * 1e6
 
 
 def device_us(torch, fn, symbols, per_call: int = 1, n: int = N_CALLS,
@@ -487,23 +513,169 @@ def check_kernels(torch, dev, launch_floor) -> dict:
 
 
 # K4's head mode: the table's stages per value (the table is built per
-# block); its tail mode: the gamma per value (a divide, powf ~ 40
-# operations, a multiply) and the gray per pixel.
-HEAD_FLOPS_PER_VALUE, TAIL_FLOPS_PER_VALUE = 3, 42
+# block). Its tail mode: the function's own operations per value, as its
+# plain version states them, each counted once: the clamp (2), the
+# divide, pow, the product with 255, then saturate_u8's clamp (2), rint
+# and the cast; and the gray per pixel. The kernel's machine code runs
+# more (CUDA's accurate powf, the staging, the loop): its vector loop's
+# instructions (``sass_loop``) give ``issue_floor_us``, a reading of the
+# kernel, not a bound of the function.
+HEAD_FLOPS_PER_VALUE, TAIL_FLOPS_PER_VALUE = 3, 9
+TAIL_VALUES_PER_LANE_STEP = 12   # a lane's values per vector-loop step
+
+
+def ptxas_usage(log_text: str, kernel: str) -> dict:
+    """Registers, shared memory, stack and spills of each entry function
+    whose name holds ``kernel`` (each template instance, by its mangled
+    name), from ``nvcc -Xptxas -v`` output."""
+    usage, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+            continue
+        if name is None:
+            continue
+        u = usage.setdefault(name, {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            u.update(stack_bytes=int(m[1]), spill_store_bytes=int(m[2]),
+                     spill_load_bytes=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            u["registers"] = int(m[1])
+            m = re.search(r"(\d+) bytes smem", line)
+            u["static_smem_bytes"] = int(m[1]) if m else 0
+            name = None
+    return usage
+
+
+def sass_of(lib_path) -> str:
+    """``cuobjdump -sass`` of the built library."""
+    from video_stab_tpu_torch.kernels import _lib
+    from pathlib import Path
+    tool = Path(_lib._nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+
+
+def sass_loop(sass: str, kernel: str) -> dict:
+    """The largest loop of the functions whose names hold ``kernel`` (every
+    template instance): the instructions from the target of a predicated
+    backward branch (the loop's back edge; the unconditional jumps back
+    from out-of-line code, such as a divergent ``__syncwarp``'s, are not
+    loops) to the branch, each counted once (NOPs left out): every
+    branch's code, powf's special cases included. With the count of each
+    MUFU kind, of global and shared loads and stores, and of calls (a call
+    leaves the loop for a subroutine, such as the IEEE divide's slow path,
+    whose instructions are not counted), and the loop's addresses."""
+    best = None
+    for func in re.split(r"\n\s*Function : ", sass)[1:]:
+        if kernel not in func.split()[0]:
+            continue
+        inst = []
+        for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", func):
+            inst.append((int(m.group(1), 16), m.group(2).strip()))
+        for addr, text in inst:
+            b = re.match(r"@!?U?P[T0-9]+\s+BRA(?:\.\w+)*\s+(?:`\()?"
+                         r"0x([0-9a-f]+)", text)
+            if not b or int(b.group(1), 16) >= addr:
+                continue
+            head = int(b.group(1), 16)
+            loop = [re.sub(r"^@!?U?P[T0-9]+\s+", "", t)
+                    for a, t in inst if head <= a <= addr]
+            loop = [t for t in loop if not t.startswith("NOP")]
+            if best is None or len(loop) > len(best[0]):
+                best = (loop, head, addr)
+    if best is None:
+        raise RuntimeError(f"cuobjdump: no loop in a function named like "
+                           f"{kernel}")
+    loop, head, end = best
+
+    def count(prefix):
+        return sum(t.split()[0].startswith(prefix) for t in loop)
+    return {"instructions": len(loop), "from": hex(head), "to": hex(end),
+            "mufu": {k: count(f"MUFU.{k}") for k in
+                     sorted({t.split()[0][5:] for t in loop
+                             if t.startswith("MUFU.")})},
+            "global_loads": count("LDG"), "global_stores": count("STG"),
+            "shared_loads": count("LDS"), "shared_stores": count("STS"),
+            "calls": count("CALL")}
+
+
+# The float32 bits of 255.0: the tail's sweep covers [0, 255].
+F32_BITS_255 = 0x437F0000
+SWEEP_CHUNK_PX = 1 << 23          # pixels (3 values each) per chunk
+SWEEP_GAMMAS = (0.9, 1.2)
+SWEEP_RANDOM = 1_000_000          # seeded values in [-1e4, 1e4]
+
+
+def sweep_tail(torch, dev) -> dict:
+    """Phase 3, the tail's divide: for gamma 0.9 and 1.2, the tail kernel
+    against ``enhance_tail_plain`` (a true division; u8 and gray, bit for
+    bit) over every float32 in [0, 255], in chunks of 2^23 pixels, and
+    over 1e6 seeded values in [-1e4, 1e4]. Any difference fails."""
+    import dataclasses
+
+    from video_stab_tpu_torch.core.params import EnhancerParams
+    from video_stab_tpu_torch.kernels import enhance as kenh
+
+    out = {}
+    n_all = F32_BITS_255 + 1
+    rng = np.random.default_rng(SEED)
+    extra = torch.from_numpy(rng.uniform(-1e4, 1e4, SWEEP_RANDOM)
+                             .astype(np.float32)).to(dev)
+    for gamma in SWEEP_GAMMAS:
+        ep = dataclasses.replace(EnhancerParams(), gamma=gamma)
+        t0 = time.perf_counter()
+        compared, differ = 0, 0
+        step = 3 * SWEEP_CHUNK_PX
+        for lo in [*range(0, n_all, step), None]:
+            if lo is None:
+                x = extra
+            else:
+                x = torch.arange(lo, min(lo + step, n_all),
+                                 dtype=torch.int32, device=dev) \
+                    .view(torch.float32)
+            pad = -x.numel() % 3
+            x = torch.cat([x, x.new_zeros(pad)]).view(1, -1, 3)
+            got, g = kenh.enhance_tail_cuda(ep, x, want_gray=True)
+            want, wg = kenh.enhance_tail_plain(ep, x, want_gray=True)
+            differ += int((got != want).sum()) + int((g != wg).sum())
+            compared += x.numel()
+        torch.cuda.synchronize()
+        row = dict(tail_values_compared=compared,
+                   tail_values_and_grays_differ=differ,
+                   seconds=time.perf_counter() - t0)
+        print(f"K4 tail sweep, gamma {gamma}: the tail against its plain "
+              f"version over {compared} values (every float32 in [0, 255] "
+              f"and {SWEEP_RANDOM} in [-1e4, 1e4]), u8 and gray: {differ} "
+              f"differ ({row['seconds']:.1f} s)")
+        assert differ == 0
+        out[str(gamma)] = row
+    return out
 
 
 def check_enhance_modes(torch, frame, cold, ep) -> dict:
     """Phase 3, K4's head and tail modes at 1080x1920x3 against their plain
-    versions (the head bit for bit; the tail's u8 and gray bit for bit
-    unless CUDA's powf and torch.pow differ, which is then printed with the
-    number of values that differ and held within 1 level), then timed.
-    The tail's input is the head's output through the unsharp mask, values
-    outside [0, 255] included, as on the selftest config's path."""
+    versions, bit for bit, then timed. The tail's input is the head's
+    output through the unsharp mask, values outside [0, 255] included, as
+    on the selftest config's path. Beside the times: each mode's registers
+    and spills (ptxas), the tail's instructions per value in its vector
+    loop (cuobjdump), its issue floor at the SM clock read while it runs,
+    and the tail timed with gamma off and with no gray."""
+    import dataclasses
+
+    from video_stab_tpu_torch.kernels import _lib
     from video_stab_tpu_torch.kernels import enhance as kenh
     from video_stab_tpu_torch.ops.filters import unsharp_mask
 
     results = {}
     n_px = 1080 * 1920
+    lib_path = _lib.build()
+    log = lib_path.with_suffix(".log").read_text()
     head = kenh.enhance_head_cuda(ep, frame, None)
     p_head = kenh.enhance_head_plain(ep, frame, None)
     torch.cuda.synchronize()
@@ -518,7 +690,8 @@ def check_enhance_modes(torch, frame, cold, ep) -> dict:
                  ["enhance_head_kernel"], n_px * (3 + 12),
                  n_px * 3 * HEAD_FLOPS_PER_VALUE)
     row.update(max_abs_err=err_h, library="none: the pointwise chain is "
-               "several calls")
+               "several calls", ptxas=ptxas_usage(log, "enhance_head_kernel"))
+    print(f"K4 head: ptxas {row['ptxas']}")
     results["enhance_head"] = row
 
     x = unsharp_mask(head, 2.0, 1.0).contiguous()
@@ -532,7 +705,12 @@ def check_enhance_modes(torch, frame, cold, ep) -> dict:
     print(f"K4 tail 1080x1920x3: max|u8 diff| {int(d.max())}, "
           f"{int((d > 0).sum())} values differ; max|gray diff| "
           f"{err_g:.3e}, {int((g != p_g).sum())} grays differ")
-    assert int(d.max()) <= 1 and err_g <= 1e-3
+    assert torch.equal(out, p_out) and torch.equal(g, p_g)
+    loop = sass_loop(sass_of(lib_path), "enhance_tail_kernel")
+    sweep = sweep_tail(torch, frame.device)
+    per_value = loop["instructions"] / TAIL_VALUES_PER_LANE_STEP
+    print(f"K4 tail: vector loop {loop} for {TAIL_VALUES_PER_LANE_STEP} "
+          f"values a lane: {per_value:.2f} instructions a value")
     row = timing(torch, "K4 tail 1080x1920x3 with gray",
                  lambda i: kenh.enhance_tail_cuda(ep, cold_x[i % N_COLD],
                                                   True),
@@ -540,8 +718,25 @@ def check_enhance_modes(torch, frame, cold, ep) -> dict:
                                                    True),
                  ["enhance_tail_kernel"], n_px * (12 + 3 + 4),
                  n_px * (3 * TAIL_FLOPS_PER_VALUE + GRAY_FLOPS))
+    no_gamma = dataclasses.replace(ep, gamma=1.0)
+    ways = {
+        "gamma off": device_us(torch, lambda i: kenh.enhance_tail_cuda(
+            no_gamma, cold_x[i % N_COLD], True), ["enhance_tail_kernel"]),
+        "no gray": device_us(torch, lambda i: kenh.enhance_tail_cuda(
+            ep, cold_x[i % N_COLD], False), ["enhance_tail_kernel"])}
+    clock = sm_clock_mhz(torch, lambda i: kenh.enhance_tail_cuda(
+        ep, cold_x[i % N_COLD], True))
+    floor = issue_floor_us(n_px * 3 * per_value, clock)
     row.update(max_abs_err=float(d.max()), values_differ=int((d > 0).sum()),
-               library="none: the pointwise chain is several calls")
+               library="none: the pointwise chain is several calls",
+               ptxas=ptxas_usage(log, "enhance_tail_kernel"), sass_loop=loop,
+               instructions_per_value=per_value, sm_clock_mhz=clock,
+               issue_floor_us=floor, device_us_gamma_off=ways["gamma off"],
+               device_us_no_gray=ways["no gray"], sweep=sweep)
+    print(f"K4 tail: ptxas {row['ptxas']}; its loop's issue floor "
+          f"{floor:.3f} us at the SM clock {clock:.0f} MHz (a reading of "
+          f"the kernel, not its bound); gamma off "
+          f"{ways['gamma off']:.3f} us, no gray {ways['no gray']:.3f} us")
     results["enhance_tail"] = row
     return results
 
@@ -3141,7 +3336,9 @@ def main() -> int:
                       "floor_share", "sm_clock_mhz", "step_floor_cycles",
                       "template_floor_cycles", "launch_floor_us", "launch",
                       "launches_per_call", "values_differ",
-                      "legacy_shape"):
+                      "legacy_shape", "ptxas", "sass_loop",
+                      "instructions_per_value", "issue_floor_us",
+                      "device_us_gamma_off", "device_us_no_gray", "sweep"):
             if extra in k:
                 row[extra] = k[extra]
         if "multistream" in k:
@@ -3164,6 +3361,11 @@ def main() -> int:
             row["launches_per_frame"] = {}
         rows.append(row)
         assert row["launches"] > 0, row
+        # K1-K4 move bytes: their operations stay under their bytes.
+        if name in ("warp_affine_u8", "warp_homography_u8",
+                    "corner_response", "enhance_u8", "enhance_head",
+                    "enhance_tail"):
+            assert row["bound_by"] == "bytes", row
     print(json.dumps({"lk_routes": routes}))
     print(json.dumps({"configs": config_numbers}))
     print(json.dumps({"variants": variant_numbers}))

@@ -646,7 +646,49 @@ def test_smoother_functions_match_cpu(dev):
 
 # ---- K4's head and tail modes, the bordered emit, azc, i420, the prior ----
 
-@pytest.mark.parametrize("shape", [(1080, 1920), (37, 53), (64, 96)])
+def _head_into(p, frame, scales, dst):
+    """K4's head mode through its C entry into ``dst``, a (H, W, 3) float32
+    view that may start anywhere (the wrapper allocates its own)."""
+    from video_stab_tpu_torch.kernels import _lib
+    from video_stab_tpu_torch.kernels import enhance as kenh
+    h, w, _ = frame.shape
+    do_cb, _ = kenh._stages(p)
+    _lib.check(_lib.library().vs_enhance_head(
+        frame.data_ptr(), dst.data_ptr(), h * w,
+        scales.data_ptr() if scales is not None else None, int(do_cb),
+        float(p.contrast), float(p.brightness),
+        _lib.stream_handle(frame.device)), "enhance_head")
+    torch.cuda.synchronize()
+
+
+def _tail_into(p, x, dst, gray):
+    """K4's tail mode through its C entry into the views ``dst`` (u8) and
+    ``gray`` (float32)."""
+    from video_stab_tpu_torch.kernels import _lib
+    from video_stab_tpu_torch.kernels import enhance as kenh
+    h, w, _ = x.shape
+    _, do_gamma = kenh._stages(p)
+    _lib.check(_lib.library().vs_enhance_tail(
+        x.data_ptr(), dst.data_ptr(), gray.data_ptr(), h * w, int(do_gamma),
+        float(p.gamma), _lib.stream_handle(x.device)), "enhance_tail")
+    torch.cuda.synchronize()
+
+
+def _offset_view(n, dtype, dev, shape, offset=1):
+    """A contiguous view ``offset`` elements into a fresh buffer (not
+    16-byte aligned for offset 1)."""
+    buf = torch.empty(n + offset, dtype=dtype, device=dev)
+    view = buf[offset:].view(shape)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+# (33, 80), (37, 53): pixel counts that are not a multiple of the head's
+# 512-pixel or the tail's 128-pixel warp step; (8, 64): exactly one head
+# step and four tail steps; (3, 7): less than a step, the scalar loop
+# alone.
+@pytest.mark.parametrize("shape", [(1080, 1920), (37, 53), (64, 96),
+                                   (33, 80), (8, 64), (3, 7)])
 @pytest.mark.parametrize("wb", [False, True])
 def test_enhance_head_and_tail_bit_for_bit(dev, shape, wb):
     from video_stab_tpu_torch.core.params import EnhancerParams
@@ -660,14 +702,25 @@ def test_enhance_head_and_tail_bit_for_bit(dev, shape, wb):
     scales = kenh.white_balance_scales(frame, 0.5) if wb else None
     head = kenh.enhance_head_cuda(p, frame, scales)
     torch.cuda.synchronize()
-    assert torch.equal(head, kenh.enhance_head_plain(p, frame, scales))
+    p_head = kenh.enhance_head_plain(p, frame, scales)
+    assert torch.equal(head, p_head)
     x = head * 1.4 - 30.0                   # a filter's out-of-range values
-    for gamma in (0.9, 1.0):
-        pg = EnhancerParams(gamma=gamma)
-        out, gray = kenh.enhance_tail_cuda(pg, x, want_gray=True)
-        p_out, p_gray = kenh.enhance_tail_plain(pg, x, want_gray=True)
-        torch.cuda.synchronize()
-        assert torch.equal(out, p_out) and torch.equal(gray, p_gray)
+    # Far outside [0, 255] in both directions, and its ends exactly.
+    wide = x.clone().view(-1)
+    wide[::97] = 1e4
+    wide[1::101] = -1e4
+    wide[2::89] = 255.0
+    wide[3::83] = 0.0
+    wide = wide.view(h, w, 3)
+    for xs in (x, wide):
+        for gamma in (0.9, 1.0, 1.2):
+            pg = EnhancerParams(gamma=gamma)
+            out, gray = kenh.enhance_tail_cuda(pg, xs, want_gray=True)
+            p_out, p_gray = kenh.enhance_tail_plain(pg, xs, want_gray=True)
+            torch.cuda.synchronize()
+            assert torch.equal(out, p_out) and torch.equal(gray, p_gray)
+            out, none = kenh.enhance_tail_cuda(pg, xs)
+            assert none is None and torch.equal(out, p_out)
     # A contiguous view 4 bytes into its buffer (not 16-byte aligned)
     # takes the kernels' scalar loop.
     buf = torch.empty(h * w * 3 + 1, device=dev)
@@ -682,6 +735,41 @@ def test_enhance_head_and_tail_bit_for_bit(dev, shape, wb):
     raw[1:] = frame.reshape(-1)
     head = kenh.enhance_head_cuda(p, raw[1:].view(h, w, 3), scales)
     assert torch.equal(head, kenh.enhance_head_plain(p, frame, scales))
+    # Misaligned destinations, with the source aligned and misaligned.
+    for src in (frame, raw[1:].view(h, w, 3)):
+        dst = _offset_view(h * w * 3, torch.float32, dev, (h, w, 3))
+        _head_into(p, src, scales, dst)
+        assert torch.equal(dst, p_head)
+    for src in (x, odd):
+        for gamma in (0.9, 1.2):
+            pg = EnhancerParams(gamma=gamma)
+            dst = _offset_view(h * w * 3, torch.uint8, dev, (h, w, 3))
+            gray = _offset_view(h * w, torch.float32, dev, (h, w))
+            _tail_into(pg, src, dst, gray)
+            p_out, p_gray = kenh.enhance_tail_plain(pg, src, True)
+            assert torch.equal(dst, p_out) and torch.equal(gray, p_gray)
+
+
+def test_tail_divide_sweep_on_the_card(dev):
+    """The tail (u8 and gray) against its plain version, a true division,
+    bit for bit over a slice of the float32 in [0, 255] (chip_smoke.py
+    sweeps them all): the subnormals, the values around 1 and the values
+    up to 255."""
+    from video_stab_tpu_torch.core.params import EnhancerParams
+    from video_stab_tpu_torch.kernels import enhance as kenh
+    top = 0x437F0000                          # 255.0f
+    for first, count in ((0, 1 << 24), (0x3F000000, 1 << 24),
+                         (top - (1 << 24), (1 << 24) + 1)):
+        x = torch.arange(first, first + count, dtype=torch.int32,
+                         device=dev).view(torch.float32)
+        x = torch.cat([x, x.new_zeros(-count % 3)]).view(1, -1, 3)
+        for gamma in (0.9, 1.2):
+            p = EnhancerParams(gamma=gamma)
+            out, gray = kenh.enhance_tail_cuda(p, x, want_gray=True)
+            p_out, p_gray = kenh.enhance_tail_plain(p, x, want_gray=True)
+            torch.cuda.synchronize()
+            assert torch.equal(out, p_out), (first, gamma)
+            assert torch.equal(gray, p_gray), (first, gamma)
 
 
 def test_enhance_frame_u8_full_route_on_the_card(dev):

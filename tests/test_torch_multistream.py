@@ -33,8 +33,13 @@ from video_stab_tpu_torch.core.stabilizer import (  # noqa: E402
     Stabilizer,
     check_supported_batched,
 )
+from video_stab_tpu_torch.core.state import (  # noqa: E402
+    StabilizerState,
+    stabilizer_state_init,
+)
 from video_stab_tpu_torch.parallel import (  # noqa: E402
     MultiStreamStabilizer,
+    batched_state_init,
     serve_remote_streams,
 )
 
@@ -394,3 +399,32 @@ def test_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="use_cuda"):
         MultiStreamStabilizer(StabilizerParams(**SMALL), 2)
+
+
+def test_batched_state_init_takes_the_card_unless_asked_for_the_cpu(
+        monkeypatch):
+    """With no device, ``batched_state_init`` takes the card through
+    ``pick_device`` and raises without one; with ``device="cpu"`` each
+    field is the single stream's initial state with a leading N, and
+    stream i's generator is seeded with seed + i."""
+    p = StabilizerParams(**SMALL)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="use_cuda"):
+        batched_state_init(p, 2, 48, 64)
+    state = batched_state_init(p, 2, 48, 64, device="cpu")
+    one = stabilizer_state_init(p, 48, 64, torch.device("cpu"))
+    for name in StabilizerState._fields:
+        got, want = getattr(state, name), getattr(one, name)
+        if name == "key":
+            assert [g.initial_seed() for g in got] == [p.seed, p.seed + 1]
+            continue
+        if name == "deepstab":
+            assert got == ()
+            continue
+        pairs = zip(got, want) if isinstance(want, tuple) else [(got, want)]
+        for g, w in pairs:
+            assert g.device.type == "cpu", name
+            assert g.shape == (2,) + tuple(w.shape), name
+            assert torch.equal(g, w.unsqueeze(0).expand_as(g)) or \
+                name == "frame_ring", name
+    assert not state.frame_ring.any()

@@ -13,7 +13,10 @@ masking or denoising run between the pointwise stages: ``enhance_head``
 (u8 -> f32: white balance and contrast/brightness) and ``enhance_tail``
 (f32 -> u8: gamma and ``saturate_u8``, plus the gray of the unsaturated
 result). ``LAUNCHES``, ``HEAD_LAUNCHES`` and ``TAIL_LAUNCHES`` count the
-three modes' launches.
+three modes' launches. The tail divides by 255 with a product and one FMA
+correction, not the IEEE divide; ``chip_smoke.py`` holds it to
+``enhance_tail_plain``, a true division, bit for bit over every float32
+in [0, 255].
 """
 
 from __future__ import annotations

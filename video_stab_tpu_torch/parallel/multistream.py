@@ -51,15 +51,16 @@ BatchedRansacDraws = Optional[Callable[[torch.Tensor], torch.Tensor]]
 
 def batched_state_init(params: StabilizerParams, n_streams: int,
                        height: int, width: int,
-                       device: torch.device = torch.device("cpu")
+                       device: Optional[torch.device] = None
                        ) -> StabilizerState:
-    """The state of n_streams (height, width) streams on ``device``: every
-    tensor of a single stream's initial state with a leading N, the
-    (N, Q, H, W, 3) frame ring allocated once, stream i's generator seeded
-    with ``params.seed + i`` and, with deep stabilization, one network
-    shared by the streams (the JAX package replicates its weights per
-    stream)."""
-    device = torch.device(device)
+    """The state of n_streams (height, width) streams on ``device`` (None:
+    the card, through ``pick_device``, which raises without one; callers
+    that want the CPU pass it): every tensor of a single stream's initial
+    state with a leading N, the (N, Q, H, W, 3) frame ring allocated once,
+    stream i's generator seeded with ``params.seed + i`` and, with deep
+    stabilization, one network shared by the streams (the JAX package
+    replicates its weights per stream)."""
+    device = pick_device(True) if device is None else torch.device(device)
     one = stabilizer_state_init(params, height, width, device)
 
     def stack(t: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
-"""Time K1 / K2, K3, K5a / K5b and K6 against another version of their
-source, in one process on one card, and count where K3's and K6's clock
-cycles go.
+"""Time K1 / K2, K3, K4's head and tail, K5a / K5b and K6 against another
+version of their source, in one process on one card, and count where K3's
+and K6's clock cycles go.
 
     git show <commit>:video_stab_tpu_torch/csrc/lk.cu > build/old_lk.cu
     git show <commit>:video_stab_tpu_torch/csrc/features.cu \\
@@ -24,6 +24,18 @@ once at eps 1e-6, where most points run their whole step budget); K3 at
 launches against the checkout's at the 1080p emit (16 frames cycled,
 cold in L2), in turns, after checking both bit for bit against each
 other.
+
+``--old-enhance`` takes another enhance.cu and holds its K4 head and tail
+modes to the checkout's, bit for bit (the tail's u8 and gray), then times
+them in turns at 1080x1920x3, (37, 53) and (64, 96): the head with and
+without white balance, the tail at gamma 0.9, 1.0 and 1.2 (16 inputs
+cycled; at 1080p also on uniform values in [-20, 280]), with torch's own
+u8 -> f32 and f32 -> u8 conversions at 1080p beside them::
+
+    git show <commit>:video_stab_tpu_torch/csrc/enhance.cu \\
+        > build/old_enhance.cu
+    python3 -m video_stab_tpu_torch.tools.kernel_ab \\
+        --old-enhance build/old_enhance.cu
 
 ``--old-traj`` takes the one-thread-per-output traj.cu (``vs_box_window(x,
 n, c, offset, window, pad, centered, r, out, stream)``) and calls it as its
@@ -50,6 +62,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import itertools
 import re
 import subprocess
 import sys
@@ -252,12 +265,118 @@ def warp_ab(lib, dev):
                  ("new", new_call, ["warp_tile_kernel<"], 1))
 
 
+ENHANCE_SHAPES = ((1080, 1920), (37, 53), (64, 96))
+ENHANCE_GAMMAS = (0.9, 1.0, 1.2)
+
+
+def enhance_ab(lib, dev):
+    """K4's head and tail modes: another enhance.cu (its ``vs_enhance_head``
+    and ``vs_enhance_tail`` renamed ``*_old``) against the checkout's, bit
+    for bit, then in turns, at 1080x1920x3, (37, 53) and (64, 96): the
+    head with and without white balance, the tail (gray on) at gamma 0.9,
+    1.0 and 1.2 on the head's output through the unsharp mask, and at
+    1080p on uniform values in [-20, 280] too; 16 inputs cycled (cold in
+    L2 at 1080p). At 1080p also ``yardsticks``."""
+    from video_stab_tpu_torch.core.params import EnhancerParams
+    from video_stab_tpu_torch.kernels import enhance as kenh
+    from video_stab_tpu_torch.ops.filters import unsharp_mask
+
+    head_fn = lib.vs_enhance_head_old
+    head_fn.argtypes = [_P, _P, ctypes.c_longlong, _P, _I, _F, _F, _P]
+    tail_fn = lib.vs_enhance_tail_old
+    tail_fn.argtypes = [_P, _P, _P, ctypes.c_longlong, _I, _F, _P]
+    for h, w in ENHANCE_SHAPES:
+        frame = torch.from_numpy(cs.make_frames(h, w, 1, seed=1)[0]).to(dev)
+        frames = [torch.roll(frame, 17 * k, dims=1).contiguous()
+                  for k in range(cs.N_COLD)]
+        for wb in (False, True):
+            ep = EnhancerParams(brightness=5.0, contrast=1.1,
+                                enable_white_balance=wb, wb_strength=0.5)
+            scales = kenh.white_balance_scales(frame, 0.5) if wb else None
+
+            def old_head(i=0, ep=ep, scales=scales):
+                src = frames[i % cs.N_COLD]
+                out = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
+                _lib.check(head_fn(src.data_ptr(), out.data_ptr(), h * w,
+                                   scales.data_ptr() if wb else None, 1,
+                                   ep.contrast, ep.brightness,
+                                   _lib.stream_handle(dev)), "head_old")
+                return out
+
+            def new_head(i=0, ep=ep, scales=scales):
+                return kenh.enhance_head_cuda(ep, frames[i % cs.N_COLD],
+                                              scales)
+            label = f"K4 head {h}x{w}x3 wb={wb}"
+            same = torch.equal(old_head(), new_head())
+            print(f"{label}: old and new bit for bit {same}")
+            assert same, label
+            in_turns(label, ("old", old_head, ["enhance_head_kernel_old"], 1),
+                     ("new", new_head, ["enhance_head_kernel("], 1))
+        head = kenh.enhance_head_cuda(EnhancerParams(brightness=5.0,
+                                                     contrast=1.1), frame,
+                                      None)
+        x = unsharp_mask(head, 2.0, 1.0).contiguous()
+        inputs = {"": x}
+        if (h, w) == ENHANCE_SHAPES[0]:
+            # Clipped values in most warps: powf's special cases diverge.
+            inputs[" uniform [-20, 280]"] = torch.from_numpy(
+                np.random.default_rng(5).uniform(-20.0, 280.0, (h, w, 3))
+                .astype(np.float32)).to(dev)
+            yardsticks(frames, [torch.roll(x, 17 * k, dims=1).contiguous()
+                                for k in range(cs.N_COLD)])
+        for (name, x), gamma in itertools.product(inputs.items(),
+                                                  ENHANCE_GAMMAS):
+            xs = [torch.roll(x, 17 * k, dims=1).contiguous()
+                  for k in range(cs.N_COLD)]
+            ep = EnhancerParams(gamma=gamma)
+            do_gamma = int(abs(gamma - 1.0) > 1e-3)
+
+            def old_tail(i=0, gamma=gamma, do_gamma=do_gamma, xs=xs):
+                src = xs[i % cs.N_COLD]
+                out = torch.empty((h, w, 3), dtype=torch.uint8, device=dev)
+                gray = torch.empty((h, w), dtype=torch.float32, device=dev)
+                _lib.check(tail_fn(src.data_ptr(), out.data_ptr(),
+                                   gray.data_ptr(), h * w, do_gamma, gamma,
+                                   _lib.stream_handle(dev)), "tail_old")
+                return out, gray
+
+            def new_tail(i=0, ep=ep, xs=xs):
+                return kenh.enhance_tail_cuda(ep, xs[i % cs.N_COLD], True)
+            label = f"K4 tail {h}x{w}x3{name} gamma={gamma}"
+            (a, ga), (b, gb) = old_tail(), new_tail()
+            same = torch.equal(a, b) and torch.equal(ga, gb)
+            print(f"{label}: old and new bit for bit (u8 and gray) {same}")
+            assert same, label
+            in_turns(label, ("old", old_tail, ["enhance_tail_kernel_old"], 1),
+                     ("new", new_tail, ["enhance_tail_kernel<"], 1))
+
+
+def yardsticks(frames, xs):
+    """Torch's own conversions at 1080p, the same bytes as K4's head
+    (u8 -> f32) and as the tail's u8 without gray (f32 -> u8): what the
+    card gives a one-call pass over those bytes."""
+    for label, fn in (
+            ("u8 -> f32 .float() (the head's bytes)",
+             lambda i: frames[i % cs.N_COLD].float()),
+            ("f32 -> u8 .to(torch.uint8) (the tail's bytes without gray)",
+             lambda i: xs[i % cs.N_COLD].to(torch.uint8))):
+        print(f"yardstick {label}: device "
+              f"{cs.device_us(torch, fn, None):.3f} us")
+
+
+# Traces per turn: the profiler now and then drops a trace's kernel
+# records, and ``device_us`` traces again; a turn still unmeasured after
+# these many fails the run.
+TURN_ATTEMPTS = 8
+
+
 def in_turns(label, old, new):
     """(name, fn, symbols, launches per call) of the old and the new
     kernel, timed old, new, new, old."""
     for name, fn, symbols, per_call in (old, new, new, old):
-        print(f"{label} {name}: device "
-              f"{cs.device_us(torch, fn, symbols, per_call):.3f} us")
+        us = cs.device_us(torch, fn, symbols, per_call,
+                          attempts=TURN_ATTEMPTS)
+        print(f"{label} {name}: device {us:.3f} us")
 
 
 def lk_cycles(lib, n_points):
@@ -285,6 +404,7 @@ def main() -> int:
     ap.add_argument("--old-features", type=Path)
     ap.add_argument("--old-traj", type=Path)
     ap.add_argument("--old-warp", type=Path)
+    ap.add_argument("--old-enhance", type=Path)
     ap.add_argument("--old-features-launches", type=int, default=1,
                     help="kernel launches per call of the old K3")
     ap.add_argument("--cycles", action="store_true")
@@ -311,6 +431,9 @@ def main() -> int:
     if args.old_warp:
         lib, _, _ = build_variant(args.old_warp, "_old")
         warp_ab(lib, dev)
+    if args.old_enhance:
+        lib, _, _ = build_variant(args.old_enhance, "_old")
+        enhance_ab(lib, dev)
     if args.old_lk:
         lib, kernels, text = build_variant(args.old_lk, "_old")
         for eps in (0.03, 1e-6):
