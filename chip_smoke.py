@@ -23,7 +23,9 @@ Phases (any failure is an uncaught exception and a nonzero exit):
    kernel's own time
    from ``torch.profiler`` (self CUDA time of its symbols over 64 launches,
    per launch; the emit warps and the enhancer cycle through 16 distinct
-   1080p frames, so their input is cold in L2 as on the path);
+   1080p frames, so their input is cold in L2 as on the path; where five
+   traces in a row drop the kernel's records, CUDA events over the 64
+   calls queued behind a spin on the card, and a line that says so);
    ``call_ms``, the wrapper's time per call over 64 back-to-back calls
    between CUDA events (host work included); the plain version's device
    time (every kernel it launches) and call time the same two ways;
@@ -114,7 +116,7 @@ Phases (any failure is an uncaught exception and a nonzero exit):
       the ticks until stream 3 emits again while the others never stop;
       then the batched homography route (the ``{"multistream": ...}``
       line);
-   h. (run last) the application, ``video_stab_tpu_torch/io/runner.py``:
+   h. (run after 5b) the application, ``video_stab_tpu_torch/io/runner.py``:
       ``StabilizerApp`` on ``configs/selftest.yaml`` (the port's
       ``load_config``) with a 1080p synthetic source and the tracker on
       (the seeded untrained detector at 640x384), through the threaded
@@ -135,7 +137,36 @@ Phases (any failure is an uncaught exception and a nonzero exit):
       frame; the CLI in subprocesses (``selftest``, ``stabilize`` and
       ``offline --method box`` on a 640x360 .avi), each exit 0, and the
       offline call in process for K5b's launches (the ``{"app": ...}``
-      line).
+      line);
+   i. (run last) the codec layer and the packet graph (``io/codec.py``,
+      ``io/packets.py``, ``io/rtsp.py``, the packet branch of
+      ``io/runner.py``; the codec runs on the host, built by g++ from
+      ``video_stab_tpu_torch/native/`` into ``build/torch_native/``):
+      first one line of what the machine has (``g++ --version``, the
+      libavcodec headers, ``native.available()``,
+      ``io.codec.available("libx264")``); where the machine lacks g++,
+      the libavcodec headers or libavcodec's shared library,
+      ``{"packets": {"available": false, "missing": [...], "reason":
+      ...}}`` with the compiler's first error line, and nothing more of
+      this phase; where it has them all, a codec that does not build or a
+      libx264 that does not open fails the phase. Else a
+      128-frame 1080p Annex-B clip of ``make_frames`` content (the port's
+      ``VideoEncoder``, an IDR every 12 frames), then (a) passthrough,
+      every toggle off, .h264 out: byte-identical, no decoder, no kernel
+      launch; (b) the ``entry()`` parameters, processing from the start:
+      the chain in I420, the output decoded back by the port's
+      ``VideoDecoder`` to 1080p frames, as many as went in less the
+      chain's queue, K1 / K3 / K4 / K6 launches per output frame, and the
+      p50 host ms per frame of decode (``decode_unit``), ``fused_chain``
+      and encode (``encode_frame_yuv``), wrapped by this script; (c)
+      ``configs/rtsp_serving.yaml`` (the port's ``load_config``) with the
+      clip as camera and an RTSP server on a free local port, an
+      in-process ``RtspPacketSource`` + ``VideoDecoder`` client, started
+      in passthrough and switched to processing: >= 48 decodable 1080p
+      frames, K1 / K3 / K6 launches; (d) ``vstab-torch stabilize in.mp4
+      out.mp4 --device cuda`` in a subprocess on a 640x360 MP4 from the
+      port's ``ContainerWriter``: exit 0, H.264 out (the ``{"packets":
+      ...}`` line).
 5. Steady-state ms/frame of the chain, the bare ``Stabilizer`` and the
    homography ``Stabilizer`` at 1080p (CUDA events); offline frames/s of
    both models over 240 frames at 1080p with the analysis, smoothing and
@@ -161,7 +192,8 @@ launches of each phase-4 path and its launches per frame (per tick of 8
 frames on the multi-stream runs; K1, K2, K3 and K6 also carry their
 ``multistream`` numbers at N = 8 and their launches per tick; the app
 runs of phase 4h count per output frame, per chain step over the reload
-cycles, and K5b per frame of the CLI's offline clip). Its ``ms``,
+cycles, and K5b per frame of the CLI's offline clip; the packet runs of
+phase 4i per output frame). Its ``ms``,
 ``plain_ms`` and ``library_ms`` are device times, so they compare with one
 another; ``call_ms``, ``plain_call_ms`` and ``library_call_ms`` are the
 same calls' times with the host's work. The line before
@@ -173,6 +205,7 @@ from __future__ import annotations
 
 import collections
 import json
+import os
 import re
 import subprocess
 import sys
@@ -303,15 +336,36 @@ def issue_floor_us(instructions: float, sm_clock_mhz: float) -> float:
         * 1e6
 
 
+def queued_us(torch, fn, n: int = N_CALLS) -> float:
+    """Device time per call of fn(0) .. fn(n - 1) between two CUDA events,
+    the calls queued behind a ~50 ms spin on the card so that they run
+    back to back, without the host's launch gaps. It holds every kernel of
+    a call, so it is an upper bound on the time of some of them."""
+    for i in range(3):
+        fn(i)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(BOOST_CLOCK_HZ * 0.05))
+    start.record()
+    for i in range(n):
+        fn(i)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e3 / n
+
+
 def device_us(torch, fn, symbols, per_call: int = 1, n: int = N_CALLS,
-              attempts: int = 3) -> float:
+              attempts: int = 5) -> float:
     """Device time per call from torch.profiler: the self CUDA time of the
     kernels whose names hold one of ``symbols`` over fn(0) .. fn(n - 1),
     divided by the number of such kernels the profiler recorded, times
     ``per_call`` (kernels per call). With ``symbols`` None: every kernel's
     time, divided by n. The profiler may drop a trace's kernel records, so
     a trace with no device time for them, or with fewer than half of the
-    launches, is taken again; after ``attempts`` such traces it fails."""
+    launches, is taken again; after ``attempts`` such traces the time is
+    taken with CUDA events instead (``queued_us``: every kernel of a call,
+    so at least the named kernels' time) and the run says so."""
     from torch.profiler import ProfilerActivity, profile
     for i in range(3):
         fn(i)
@@ -333,8 +387,10 @@ def device_us(torch, fn, symbols, per_call: int = 1, n: int = N_CALLS,
             return total / n if symbols is None else total / count * per_call
         print(f"profiler: {count} kernels, {total} us of device time for "
               f"{symbols} over {n} calls; tracing again")
-    raise RuntimeError(f"profiler: no complete trace of {symbols} in "
-                       f"{attempts} attempts")
+    us = queued_us(torch, fn, n)
+    print(f"profiler: no complete trace of {symbols} in {attempts} "
+          f"attempts; CUDA events over {n} queued calls: {us:.3f} us a call")
+    return us
 
 
 def call_ms(torch, fn, n: int = N_CALLS) -> float:
@@ -815,6 +871,10 @@ def check_new_kernels(torch, dev, frame, cold, launch_floor) -> dict:
         t["launch_floor_us"] = device_us(
             torch, lambda i: launch_floor(blocks, threads, smem),
             ["launch_floor_kernel"])
+        # The same empty kernel read by device_us's stand-in, so that the
+        # stand-in runs, and shows its excess, in every run.
+        t["launch_floor_queued_us"] = queued_us(
+            torch, lambda i: launch_floor(blocks, threads, smem))
         t["floor_share"] = t["launch_floor_us"] / t["device_us"]
         t["launch"] = {"blocks": blocks, "threads": threads,
                        "smem_bytes": smem, "median_in_kernel": median}
@@ -823,6 +883,7 @@ def check_new_kernels(torch, dev, frame, cold, launch_floor) -> dict:
         if name == "box_filter_convolve":
             assert ktraj.CONVOLVE_LAUNCHES == before + 2, name
         print(f"{name} {shape}: launch floor {t['launch_floor_us']:.3f} us "
+              f"(queued: {t['launch_floor_queued_us']:.3f} us) "
               f"({blocks} blocks x {threads} threads, {smem} B shared), "
               f"floor_share {t['floor_share']:.3f}; kernel launches per "
               f"call {t['launches_per_call']}"
@@ -2791,7 +2852,7 @@ def _wait(cond, seconds: float, what: str) -> None:
     deadline = time.monotonic() + seconds
     while not cond():
         if time.monotonic() > deadline:
-            raise AssertionError(f"phase 4h: timed out waiting for {what}")
+            raise AssertionError(f"timed out waiting for {what}")
         time.sleep(0.02)
 
 
@@ -3199,6 +3260,414 @@ def run_app_phase(torch, dev) -> tuple[dict, dict, dict]:
     return numbers, by_run, frames
 
 
+# Phase 4i: the codec layer and the packet graph (``io/codec.py``,
+# ``io/packets.py``, ``io/rtsp.py`` and the packet branch of
+# ``io/runner.py``). The codec runs on the host (libavcodec / libx264,
+# built by g++ from ``video_stab_tpu_torch/native/``); the chain between
+# decode and encode runs on the card.
+PKT_FRAMES = 128                 # the 1080p Annex-B clip, 30 frames/s
+PKT_GOP = 12                     # an IDR every 12 frames (a live camera's)
+PKT_RTSP_MIN_FRAMES = 48         # decodable frames the RTSP client must get
+PKT_CLI_FRAMES = 48              # the CLI's 640x360 MP4
+# The kernels the entry() chain runs (fused K4), and rtsp_serving's.
+PKT_ENTRY_KERNELS = ("warp_affine_u8", "corner_response", "enhance_u8",
+                     "lk_track")
+PKT_RTSP_KERNELS = ("warp_affine_u8", "corner_response", "lk_track")
+
+
+def _first_error_line(text: str) -> str:
+    lines = [ln.strip() for ln in (text or "").splitlines() if ln.strip()]
+    for ln in lines:
+        if "error" in ln.lower():
+            return ln
+    return lines[0] if lines else "unknown"
+
+
+def packet_toolchain() -> dict:
+    """Phase 4i.0: what the machine has for the codec layer: g++, the
+    libavcodec headers, the shared libraries the linker would find, and
+    whether the port's native libraries build. ``missing`` names what the
+    machine lacks; where it lacks nothing, a library that does not build
+    (or a libx264 that does not open) raises with the compiler's message,
+    since that is a fault of the port."""
+    import shutil
+
+    from video_stab_tpu_torch import native
+    from video_stab_tpu_torch.io import codec
+
+    gxx = shutil.which(os.environ.get("CXX") or "g++")
+    version = "none"
+    if gxx:
+        version = subprocess.run([gxx, "--version"], capture_output=True,
+                                 text=True).stdout.splitlines()[0]
+    headers = [d for d in ("/usr/include", "/usr/local/include",
+                           "/usr/include/x86_64-linux-gnu",
+                           "/usr/include/aarch64-linux-gnu")
+               if os.path.exists(os.path.join(d, "libavcodec",
+                                              "avcodec.h"))]
+    import ctypes.util
+    runtime = {name: ctypes.util.find_library(name)
+               for name in ("avcodec", "avformat", "swscale", "x264")}
+    t0 = time.perf_counter()
+    host = native.available()
+    x264 = codec.available("libx264")
+    missing = [what for what, have in (
+        ("g++", gxx), ("libavcodec headers", headers),
+        ("libavcodec shared library", runtime["avcodec"]))
+        if not have]
+    out = dict(gxx=version, libavcodec_headers=headers,
+               shared_libraries=runtime, missing=missing,
+               native_available=host, libx264_available=x264,
+               build_s=time.perf_counter() - t0)
+    if not x264:
+        err = native.build_error("vstab_codec") or \
+            "libx264 does not open in the built codec library"
+        out["reason"] = _first_error_line(err)
+    print(f"packets toolchain: {out}")
+    if gxx and not host:
+        raise RuntimeError("g++ is here but the host library does not "
+                           f"build: {native.build_error('vstab_host')}")
+    if not missing and not x264:
+        raise RuntimeError("the libavcodec headers and libraries are here "
+                           f"but the codec layer does not work: {err}")
+    return out
+
+
+def _wait_quiet(values, quiet: float, seconds: float, what: str) -> None:
+    """Wait until ``values()`` stays the same for ``quiet`` seconds."""
+    deadline = time.monotonic() + seconds
+    last, since = values(), time.monotonic()
+    while time.monotonic() - since < quiet:
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.05)
+        now = values()
+        if now != last:
+            last, since = now, time.monotonic()
+
+
+def _timed(fn, samples: list):
+    """fn, appending each call's host ms to ``samples``."""
+    def wrapper(*args, **kw):
+        t0 = time.perf_counter()
+        result = fn(*args, **kw)
+        samples.append((time.perf_counter() - t0) * 1e3)
+        return result
+    return wrapper
+
+
+def _p50(samples) -> float:
+    return float(np.median(samples)) if len(samples) else float("nan")
+
+
+def _decode_file(path: str) -> list:
+    from video_stab_tpu_torch.io.codec import VideoDecoder
+    from video_stab_tpu_torch.io.packets import PacketSource
+    dec = VideoDecoder()
+    src = PacketSource(path)
+    frames = []
+    while (au := src.read()) is not None:
+        frames += dec.decode(b"".join(au))
+    frames += dec.flush()
+    src.stop()
+    dec.close()
+    return frames
+
+
+def packet_clip(path: str) -> None:
+    """Phase 4i.1: PKT_FRAMES ``make_frames`` frames at 1080p, encoded by
+    the port's ``VideoEncoder`` into an Annex-B .h264 file."""
+    from video_stab_tpu_torch.io.codec import VideoEncoder
+    from video_stab_tpu_torch.io.sinks import bitrate_bps_app
+
+    enc = VideoEncoder(APP_W, APP_H, 30.0,
+                       bitrate_bps=bitrate_bps_app(APP_W, APP_H, 30),
+                       gop=PKT_GOP)
+    t0 = time.perf_counter()
+    with open(path, "wb") as f:
+        for frame in make_frames(APP_H, APP_W, PKT_FRAMES, seed=SEED + 11):
+            f.write(enc.encode(frame))
+        f.write(enc.flush())
+    enc.close()
+    print(f"packets clip: {PKT_FRAMES} frames 1080p H.264 "
+          f"({os.path.getsize(path)} bytes) in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def _packet_app(torch, cfg):
+    from video_stab_tpu_torch.io.runner import StabilizerApp
+    app = StabilizerApp(cfg)
+    assert app.packet_mode and app.device.type == "cuda", app.device
+    return app
+
+
+def packet_passthrough(torch, clip: str, tmp: str) -> dict:
+    """Phase 4i.a: every toggle off, .h264 in and out: the packet graph
+    relays the clip byte for byte, constructs no decoder and launches no
+    kernel."""
+
+    from video_stab_tpu_torch.core.params import ModeParams
+    from video_stab_tpu_torch.utils.config import AppConfig
+
+    out_path = os.path.join(tmp, "passthrough.h264")
+    app = _packet_app(torch, AppConfig(video_source=clip,
+                                       output_source=out_path,
+                                       mode=ModeParams()))
+    zero_counts()
+    t0 = time.perf_counter()
+    app.graph.start()
+    try:
+        _wait(lambda: app.source.eof and app.sink.units_written
+              == app.source.units_read == PKT_FRAMES, 60.0,
+              "the passthrough relay")
+    finally:
+        app.stop()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    with open(clip, "rb") as a, open(out_path, "rb") as b:
+        identical = a.read() == b.read()
+    out = dict(units=app.sink.units_written, byte_identical=identical,
+               decoder_constructed=app.decoder_constructed,
+               launches=sum(launches.values()), seconds=seconds)
+    print(f"packets (a) passthrough: {out}")
+    assert identical and not app.decoder_constructed, out
+    assert sum(launches.values()) == 0, launches
+    return out
+
+
+def packet_processing(torch, clip: str, tmp: str) -> tuple[dict, dict]:
+    """Phase 4i.b: the ``entry()`` parameters, processing from the start,
+    .h264 out: the chain runs in I420, the port's decoder reads the output
+    back as 1080p frames, as many as went in less the chain's queue, and
+    K1 / K3 / K4 / K6 launch. p50 ms per frame of the decode
+    (``PacketDecoderBridge.decode_unit``), the chain (the app's
+    ``fused_chain`` stage: upload, chain, download) and the encode
+    (``PacketEncoderBridge.encode_frame_yuv``), host clock."""
+
+    from video_stab_tpu_torch.utils.config import AppConfig
+
+    kw = entry_params()
+    out_path = os.path.join(tmp, "processed.h264")
+    cfg = AppConfig(video_source=clip, output_source=out_path,
+                    mode=kw["mode"], enhancer=kw["enhancer"],
+                    roll_correction=kw["roll"], stabilizer=kw["stabilizer"])
+    app = _packet_app(torch, cfg)
+    assert app.graph.pipeline("output").listen_to == "processed_pkt"
+    decode_ms, encode_ms = [], []
+    app._pkt_decoder.decode_unit = _timed(app._pkt_decoder.decode_unit,
+                                          decode_ms)
+    app._pkt_encoder.encode_frame_yuv = _timed(
+        app._pkt_encoder.encode_frame_yuv, encode_ms)
+    processing = app.graph.pipeline("processing")
+    output = app.graph.pipeline("output")
+    # The decoder's parser holds the last frame until a flush, which a
+    # live relay never sends: PKT_FRAMES - 1 frames reach the chain.
+    n_in = PKT_FRAMES - 1
+    zero_counts()
+    t0 = time.perf_counter()
+    app.graph.start()
+    try:
+        _wait(lambda: len(decode_ms) == PKT_FRAMES
+              and app.chain is not None and app.chain._frames_in == n_in
+              and output.frames_processed == processing.frames_processed
+              == app._pkt_encoder.units_out, 180.0, "the processed stream")
+    finally:
+        app.stop()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = read_counts()
+    queued = app.chain._frames_in - app.chain._emitted
+    frames = _decode_file(out_path)
+    n_out = app.metrics.counters["frames_out"]
+    per_frame = {k: launches[k] / n_out for k in PKT_ENTRY_KERNELS}
+    stages = app.metrics.timer.summary()
+    out = dict(
+        units_in=PKT_FRAMES, frames_in=n_in, frames_out=n_out,
+        queued=queued,
+        decoded_back=len(frames),
+        output_format=app.chain.params.output_format,
+        yuv_encodes=len(encode_ms),
+        decode_p50_ms=_p50(decode_ms),
+        fused_chain_p50_ms=stages["fused_chain"]["p50_ms"],
+        encode_p50_ms=_p50(encode_ms), seconds=seconds,
+        launches_per_output_frame=per_frame)
+    print(f"packets (b) processing, entry() params: {out}")
+    assert out["output_format"] == "i420" and len(encode_ms) == n_out, out
+    assert len(frames) == n_out == n_in - queued > 0, out
+    assert all(f.shape == (APP_H, APP_W, 3) for f in frames)
+    assert float(np.asarray(frames[-1], np.float64).std()) > 5.0
+    assert all(launches[k] > 0 for k in PKT_ENTRY_KERNELS), launches
+    return out, launches
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def packet_rtsp(torch, clip: str) -> tuple[dict, dict]:
+    """Phase 4i.c: ``configs/rtsp_serving.yaml`` through the port's
+    ``load_config``, with the clip as its camera and an RTSP server on a
+    free local port as its output. An in-process client (the port's
+    ``RtspPacketSource`` and ``VideoDecoder``) joins; the app starts in
+    passthrough and switches to processing once the client has decoded
+    2 frames: the decoder attaches at the next IDR and frames keep
+    flowing. The client must decode >= PKT_RTSP_MIN_FRAMES 1080p frames;
+    K1 / K3 / K6 launch."""
+    import dataclasses
+    import threading
+
+    from video_stab_tpu_torch.io.codec import VideoDecoder
+    from video_stab_tpu_torch.io.packets import RtspPacketSource
+    from video_stab_tpu_torch.utils.config import load_config
+
+    url = f"rtsp://127.0.0.1:{_free_port()}/stabilized"
+    cfg = dataclasses.replace(load_config(_repo_path(
+        "configs", "rtsp_serving.yaml")), video_source=clip,
+        output_source=url)
+    app = _packet_app(torch, cfg)
+    client = RtspPacketSource(url).start()
+    got = {"frames": 0, "shapes": set(), "units": 0}
+    stop = threading.Event()
+
+    def receive():
+        dec = VideoDecoder()
+        while not stop.is_set():
+            au = client.read(timeout=0.5)
+            if au is None:
+                continue
+            got["units"] += 1
+            for f in dec.decode(b"".join(au)):
+                got["frames"] += 1
+                got["shapes"].add(f.shape)
+        dec.close()
+
+    reader = threading.Thread(target=receive, daemon=True)
+    reader.start()
+    processing = app.graph.pipeline("processing")
+    output = app.graph.pipeline("output")
+    app.switch_passthrough()
+    zero_counts()
+    t0 = time.perf_counter()
+    app.graph.start()
+    try:
+        _wait(lambda: got["frames"] >= 2, 60.0, "passthrough frames")
+        before = got["frames"]
+        assert not app.decoder_constructed
+        app.switch_processing()
+        # Done when the source is spent and nothing moves for 2 s (a
+        # chain step takes well under that; the chain's own count moves
+        # through its warm-up, when nothing comes out).
+        _wait(lambda: app.source.eof, 60.0, "the end of the clip")
+        _wait_quiet(lambda: (app.chain._frames_in,
+                             processing.frames_processed,
+                             output.frames_processed, got["frames"]),
+                    2.0, 180.0, "the RTSP stream")
+    finally:
+        stop.set()
+        reader.join(timeout=5.0)
+        client.stop()
+        app.stop()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = read_counts()
+    n_out = app.metrics.counters["frames_out"]
+    out = dict(url=url, frames_received=got["frames"],
+               passthrough_frames_before_switch=before,
+               processed_frames_out=n_out,
+               chain_frames_in=app.chain._frames_in,
+               decoder_constructed=app.decoder_constructed,
+               shapes=sorted(got["shapes"]), seconds=seconds,
+               fused_chain_p50_ms=app.metrics.timer.summary()[
+                   "fused_chain"]["p50_ms"],
+               launches_per_output_frame={
+                   k: launches[k] / max(n_out, 1)
+                   for k in PKT_RTSP_KERNELS})
+    print(f"packets (c) rtsp_serving.yaml: {out}")
+    assert got["frames"] >= PKT_RTSP_MIN_FRAMES, out
+    assert got["shapes"] == {(APP_H, APP_W, 3)}, out
+    assert app.decoder_constructed and n_out > 0, out
+    # Every processed frame reached the client after the switch (its
+    # decoder, too, holds the last one).
+    assert got["frames"] - before >= n_out - 1, out
+    assert all(launches[k] > 0 for k in PKT_RTSP_KERNELS), launches
+    return out, launches
+
+
+def packet_cli(tmp: str) -> dict:
+    """Phase 4i.d: ``vstab-torch stabilize in.mp4 out.mp4 --device cuda``
+    in a subprocess on a 640x360 MP4 the port's ``ContainerWriter``
+    wrote: exit 0, and the output demuxes as H.264 to every frame."""
+
+    from video_stab_tpu_torch.io.codec import (ContainerDemuxer,
+                                               ContainerWriter, VideoDecoder)
+
+    src = os.path.join(tmp, "in.mp4")
+    dst = os.path.join(tmp, "out.mp4")
+    w = ContainerWriter(src, 640, 360, 30.0)
+    for f in make_frames(360, 640, PKT_CLI_FRAMES, seed=SEED + 13):
+        w.write(f)
+    w.close()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "video_stab_tpu_torch.cli", "stabilize", src,
+         dst, "--device", "cuda"], cwd=_repo_path(), capture_output=True,
+        text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    last = proc.stdout.strip().splitlines()[-1] if proc.stdout else ""
+    print(f"packets (d) cli stabilize in.mp4 out.mp4: exit "
+          f"{proc.returncode} in {seconds:.1f} s: {last}")
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    dm = ContainerDemuxer(dst)
+    dec = VideoDecoder()
+    frames = []
+    while (pkt := dm.read()) is not None:
+        frames += dec.decode(pkt)
+    frames += dec.flush()
+    codec_name = dm.codec_name
+    dm.close()
+    dec.close()
+    out = dict(exit=proc.returncode, seconds=seconds,
+               result=json.loads(last), codec=codec_name,
+               frames_decoded=len(frames))
+    assert codec_name == "h264" and len(frames) == PKT_CLI_FRAMES, out
+    assert frames[0].shape == (360, 640, 3)
+    return out
+
+
+def run_packet_phase(torch) -> tuple[dict, dict, dict]:
+    """Phase 4i, the codec layer and the packet graph. -> (the
+    {"packets": ...} numbers, launches by run, frames by run); with no
+    codec on the machine, the toolchain and the reason only."""
+    import tempfile
+
+    tool = packet_toolchain()
+    if not tool["libx264_available"]:
+        # packet_toolchain raised unless the machine lacks a piece.
+        numbers = dict(available=False, reason=tool["reason"],
+                       missing=tool["missing"], toolchain=tool)
+        print(json.dumps({"packets": {"available": False,
+                                      "missing": tool["missing"],
+                                      "reason": tool["reason"]}}))
+        return numbers, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        clip = os.path.join(tmp, "clip.h264")
+        packet_clip(clip)
+        passthrough = packet_passthrough(torch, clip, tmp)
+        processing, proc_launches = packet_processing(torch, clip, tmp)
+        rtsp, rtsp_launches = packet_rtsp(torch, clip)
+        cli_run = packet_cli(tmp)
+    numbers = dict(available=True, toolchain=tool, passthrough=passthrough,
+                   processing=processing, rtsp_serving=rtsp, cli=cli_run)
+    by_run = {"packets entry() 1080p": proc_launches,
+              "packets rtsp_serving 1080p": rtsp_launches}
+    frames = {"packets entry() 1080p": processing["frames_out"],
+              "packets rtsp_serving 1080p": rtsp["processed_frames_out"]}
+    return numbers, by_run, frames
+
+
 class Lap:
     """Prints the seconds each phase took (host clock), for the script's
     own time budget."""
@@ -3285,6 +3754,10 @@ def main() -> int:
     lap("phase 4h")
     by_path.update(app_paths)
     frames.update(app_frames)
+    packet_numbers, packet_paths, packet_frames = run_packet_phase(torch)
+    lap("phase 4i")
+    by_path.update(packet_paths)
+    frames.update(packet_frames)
 
     meta = {
         "warp_affine_u8": ("video_stab_tpu_torch/csrc/warp.cu",
@@ -3334,8 +3807,8 @@ def main() -> int:
                       "err_max_abs_diff", "eps_1e_6", "lk_track_launches",
                       "steps", "steps_eps_1e_6", "latency_floor_us",
                       "floor_share", "sm_clock_mhz", "step_floor_cycles",
-                      "template_floor_cycles", "launch_floor_us", "launch",
-                      "launches_per_call", "values_differ",
+                      "template_floor_cycles", "launch_floor_us",
+                      "launch_floor_queued_us", "launch", "launches_per_call", "values_differ",
                       "legacy_shape", "ptxas", "sass_loop",
                       "instructions_per_value", "issue_floor_us",
                       "device_us_gamma_off", "device_us_no_gray", "sweep"):
@@ -3371,6 +3844,7 @@ def main() -> int:
     print(json.dumps({"variants": variant_numbers}))
     print(json.dumps({"multistream": ms_numbers}))
     print(json.dumps({"app": app_numbers}))
+    print(json.dumps({"packets": packet_numbers}))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

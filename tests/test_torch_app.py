@@ -13,7 +13,8 @@ Held:
   reload whose rebuild raises leaving the running config whole;
 - ``stop()`` draining exactly the chain's queued frames into the sink;
 - the threaded graph delivering frames with the tracker on;
-- ``use_cuda: true`` without a card and ``packet_mode=True`` raising;
+- ``use_cuda: true`` without a card raising; ``packet_mode=True``
+  building the compressed-domain graph;
 - stream-state checkpoints crossing between the packages both ways.
 """
 
@@ -316,9 +317,37 @@ def test_use_cuda_without_a_card_raises(monkeypatch, tmp_path):
     app.stop()
 
 
-def test_packet_mode_raises():
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        trunner.StabilizerApp(_port_config(), packet_mode=True)
+def test_packet_mode_builds_the_packet_graph(tmp_path):
+    """packet_mode=True on an Annex-B source: access units ride the
+    lossless source_pkt / processed_pkt channels, processing is routed
+    from the start (the stabilizer is on), the chain delivers I420 to the
+    encoder bridge, and no decoder exists before a unit arrives."""
+    from video_stab_tpu_torch.io import codec as tcodec
+    from video_stab_tpu_torch.io.packets import PacketFileSink, PacketSource
+
+    if not tcodec.available():
+        pytest.skip("native codec layer unavailable")
+    src = str(tmp_path / "in.h264")
+    enc = tcodec.VideoEncoder(W, H, 30, bitrate_bps=400_000)
+    with open(src, "wb") as f:
+        for frame in _frames()[:4]:
+            f.write(enc.encode(frame))
+        f.write(enc.flush())
+    enc.close()
+    cfg = dataclasses.replace(_port_config(), video_source=src,
+                              output_source=str(tmp_path / "out.h264"))
+    app = trunner.StabilizerApp(cfg, packet_mode=True)
+    try:
+        assert app.packet_mode
+        assert isinstance(app.source, PacketSource)
+        assert isinstance(app.sink, PacketFileSink)
+        assert app.graph.channel("source_pkt").depth == 256
+        assert app.graph.channel("processed_pkt").depth == 256
+        assert app.graph.pipeline("output").listen_to == "processed_pkt"
+        assert app.chain.params.output_format == "i420"
+        assert not app.decoder_constructed
+    finally:
+        app.stop()
 
 
 SMALL = dict(smoothing_radius=4, analysis_width=64, analysis_height=48,

@@ -5,8 +5,9 @@ graph's routing and hot switch, delivery during a hand-over, lossless
 channels, the TCP receiver, the REST update and endpoints, the sinks'
 bitrate heuristics and MJPEG preview, keyboard dispatch) run once per
 package. Servers bind ports the OS picks, so parallel workers never
-collide. Then the port's own refusals: ``open_sink`` raises for the
-encoder targets it has not ported (ROADMAP queue 1 item 13b).
+collide. ``open_sink`` dispatches the encoder targets (``.h264``,
+``.264``, ``.mp4``, ``.mkv``, ``.mov``, ``rtsp://``) as the JAX package
+does.
 """
 
 import json
@@ -23,11 +24,13 @@ pytest.importorskip("torch")
 
 from video_stab_tpu.io import channels as jchannels  # noqa: E402
 from video_stab_tpu.io import control as jcontrol  # noqa: E402
+from video_stab_tpu.io import rtsp as jrtsp  # noqa: E402
 from video_stab_tpu.io import sinks as jsinks  # noqa: E402
 from video_stab_tpu.io import sources as jsources  # noqa: E402
 from video_stab_tpu.utils import config as jconfig  # noqa: E402
 from video_stab_tpu_torch.io import channels as tchannels  # noqa: E402
 from video_stab_tpu_torch.io import control as tcontrol  # noqa: E402
+from video_stab_tpu_torch.io import rtsp as trtsp  # noqa: E402
 from video_stab_tpu_torch.io import sinks as tsinks  # noqa: E402
 from video_stab_tpu_torch.io import sources as tsources  # noqa: E402
 from video_stab_tpu_torch.utils import config as tconfig  # noqa: E402
@@ -35,10 +38,10 @@ from video_stab_tpu_torch.utils import config as tconfig  # noqa: E402
 PACKAGES = {
     "jax": types.SimpleNamespace(sources=jsources, channels=jchannels,
                                  control=jcontrol, sinks=jsinks,
-                                 config=jconfig),
+                                 config=jconfig, rtsp=jrtsp),
     "torch": types.SimpleNamespace(sources=tsources, channels=tchannels,
                                    control=tcontrol, sinks=tsinks,
-                                   config=tconfig),
+                                   config=tconfig, rtsp=trtsp),
 }
 
 
@@ -308,9 +311,31 @@ def test_keyboard_dispatch(pkg):
     assert hits == ["p", "r", "s", "q", "q"]
 
 
-@pytest.mark.parametrize("target", ["out.h264", "out.264", "out.mp4",
-                                    "out.MKV", "out.mov",
-                                    "rtsp://:8554/live"])
-def test_encoder_sinks_raise_naming_their_item(target):
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        tsinks.open_sink(target)
+@pytest.mark.parametrize("target,kind", [
+    ("out.h264", "H264FileSink"), ("out.264", "H264FileSink"),
+    ("out.mp4", "ContainerSink"), ("out.MKV", "ContainerSink"),
+    ("out.mov", "ContainerSink"), ("rtsp://127.0.0.1:{port}/live",
+                                   "RTSPServer")])
+def test_open_sink_dispatches_encoder_targets(pkg, target, kind, tmp_path):
+    """The encoder targets go to the native codec layer's sinks: Annex-B
+    files to H264FileSink, containers to ContainerSink, rtsp:// to a
+    started RTSPServer on the URL's port and mount."""
+    if target.startswith("rtsp://"):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        target = target.format(port=port)
+        cls = pkg.rtsp.RTSPServer
+    else:
+        target = str(tmp_path / target)
+        cls = getattr(pkg.sinks, kind)
+    sink = pkg.sinks.open_sink(target, fps=25.0)
+    try:
+        assert type(sink) is cls
+        if kind == "RTSPServer":
+            assert (sink.port, sink.mount, sink.fps) == (port, "/live", 25)
+            assert sink.url == target
+        else:
+            assert (sink.path, sink.fps) == (target, 25.0)
+    finally:
+        sink.close()

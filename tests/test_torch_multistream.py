@@ -9,7 +9,7 @@ reproduce them). Held, as in the single-stream tests: identical per-stream
 readiness, per-stream transforms within 1e-3, emitted u8 frames within 1
 on >= 99.5 % of pixels. Also: stream i of the batch against the port's own
 single-stream ``Stabilizer(seed = seed + i)``, a JAX batched state carried
-into the port, the serving loop over the JAX package's frame server on
+into the port, the serving loop over the port's own frame server on
 loopback, the parameters ``check_supported_batched`` refuses, and the
 plain versions' calls per tick (each stage once for all N streams).
 """
@@ -302,12 +302,18 @@ def test_deep_stabilization_with_reset_matches_jax(batches):
 
 
 def test_serve_remote_streams_over_the_jax_frame_server():
-    """The serving loop over the JAX package's RemoteFrameServer (JPEG over
-    TCP on loopback): one batched step per tick, and every stream emits
-    after the shared warm-up."""
-    from video_stab_tpu.io.remote import RemoteFrameServer, RemoteFrameSink
+    """The serving loop over the port's own RemoteFrameServer and
+    RemoteFrameSink (JPEG over TCP on loopback, a port the OS picks): one
+    batched step per tick, and every stream emits after the shared
+    warm-up."""
+    import socket
 
-    port_no = 15957
+    from video_stab_tpu_torch.io.remote import (RemoteFrameServer,
+                                                RemoteFrameSink)
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port_no = s.getsockname()[1]
     srv = RemoteFrameServer(port=port_no, queue_size=16).start()
     sinks = []
     try:

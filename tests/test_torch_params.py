@@ -119,6 +119,12 @@ def test_port_never_imports_jax():
         "import video_stab_tpu_torch.io.channels\n"
         "import video_stab_tpu_torch.io.control\n"
         "import video_stab_tpu_torch.io.runner\n"
+        "import video_stab_tpu_torch.io.codec\n"
+        "import video_stab_tpu_torch.io.rtsp\n"
+        "import video_stab_tpu_torch.io.packets\n"
+        "import video_stab_tpu_torch.io.remote\n"
+        "import video_stab_tpu_torch.io.daemon\n"
+        "import video_stab_tpu_torch.native\n"
         "import video_stab_tpu_torch.cli\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'jaxlib',\n"
@@ -133,6 +139,18 @@ def test_port_never_imports_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_daemon_child_code_never_names_the_jax_package():
+    """The graph daemon's child process runs the port's stream graph: its
+    code names no module of the JAX package."""
+    import re
+
+    from video_stab_tpu_torch.io import daemon
+
+    assert not re.search(r"\bvideo_stab_tpu\.", daemon._SERVER_CODE)
+    assert "import jax" not in daemon._SERVER_CODE
+    assert "video_stab_tpu_torch.io." in daemon._SERVER_CODE
 
 
 def test_use_cuda_without_a_device_raises(monkeypatch):

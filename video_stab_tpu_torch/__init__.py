@@ -22,8 +22,11 @@ stabilizer), ``core.chain.ProcessingChain`` (the fused serving chain),
 ``offline.stabilize_clip`` (whole-clip stabilization),
 ``parallel.MultiStreamStabilizer`` (lockstep streams), and the
 application: ``io.runner.StabilizerApp`` (``vstab-torch run``: the YAML
-config with hot reload over the frame graph, with the object tracker of
-``models.tracker``) and the CLI (``cli.py``).
+config with hot reload over the frame graph or the compressed-domain
+packet graph, with the object tracker of ``models.tracker``), the host
+codec layer (``native/``, ``io.codec``: H.264 / H.265 over the system's
+libavcodec, built at first use), the RTSP server (``io.rtsp``) and the
+CLI (``cli.py``).
 
 Importing the package turns TF32 off for matmuls and cuDNN convolutions:
 the filters, resizes and LK's normal equations need full float32.

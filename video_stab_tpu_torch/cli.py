@@ -3,7 +3,9 @@
 
   python -m video_stab_tpu_torch.cli run <config.yaml> [--duration S]
                                          [--frames N] [--rest] [--tcp]
-  python -m video_stab_tpu_torch.cli stabilize <in> <out> [--radius N] ...
+                                         [--packet auto|on|off]
+  python -m video_stab_tpu_torch.cli stabilize <in.mp4> <out.mp4>
+                                               [--radius N] ...
   python -m video_stab_tpu_torch.cli offline <in> <out> [--method l1]
   python -m video_stab_tpu_torch.cli selftest        # synthetic end to end
   python -m video_stab_tpu_torch.cli profile         # torch.profiler trace
@@ -254,8 +256,8 @@ def main(argv=None) -> int:
     pr.add_argument("--tcp", action="store_true")
     pr.add_argument("--packet", choices=("auto", "on", "off"),
                     default="auto",
-                    help="compressed-domain graph (not ported yet: 'on' "
-                         "fails; auto takes the frame graph)")
+                    help="compressed-domain graph (auto: when both "
+                         "endpoints speak H.264 / HEVC packets)")
     device_arg(pr, None)
     pr.set_defaults(fn=cmd_run)
 

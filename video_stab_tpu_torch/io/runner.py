@@ -20,10 +20,12 @@ stage, the fused ``ProcessingChain`` or the separate ``Enhancer`` /
 detector run on it. ``use_cuda`` pins it across reloads (the CLI's
 ``--device``).
 
-The JAX package's packet (compressed-domain) graph stands on its native
-codec layer, which the port has not taken yet (ROADMAP queue 1 item 13b):
-``packet_mode=True`` raises ``NotImplementedError``, and the automatic
-choice takes the frame graph.
+Packet (compressed-domain) mode is the production passthrough: H.264 /
+HEVC access units ride lossless channels and are relayed byte-identically
+with no decoder, and processing decodes on the host (``io/codec.py``),
+runs the chain on the device and re-encodes. The chain then delivers
+planar I420 straight to the encoder when the frame size allows it
+(H % 4 == 0 and W % 2 == 0), else BGR.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ import dataclasses
 import threading
 import time
 from typing import Optional
+
+import numpy as np
 
 from video_stab_tpu_torch import pick_device
 from video_stab_tpu_torch.core.autozoomcrop import AutoZoomCrop
@@ -48,12 +52,6 @@ from video_stab_tpu_torch.models.tracker import ObjectTracker
 from video_stab_tpu_torch.utils.config import (AppConfig, ConfigWatcher,
                                                load_config)
 from video_stab_tpu_torch.utils.telemetry import Metrics, get_logger
-
-PACKET_MODE_ITEM = ("packet mode (the compressed-domain graph) needs the "
-                    "native codec layer, which is not ported yet: ROADMAP "
-                    "queue 1 item 13b")
-_PACKET_SOURCES = (".h264", ".264", ".h265", ".265", ".hevc", ".mp4",
-                   ".m4v", ".mkv", ".mov")
 
 
 class StabilizerApp:
@@ -85,7 +83,10 @@ class StabilizerApp:
 
         self.graph = StreamGraph()
         self.packet_mode = self._decide_packet_mode(packet_mode, sink)
-        self._build_frame_graph(sink)
+        if self.packet_mode:
+            self._build_packet_graph()
+        else:
+            self._build_frame_graph(sink)
 
         self.tcp: Optional[TcpReceiver] = \
             TcpReceiver(tcp_port).start() if enable_tcp else None
@@ -112,18 +113,57 @@ class StabilizerApp:
     # -- graph construction -------------------------------------------------
     def _decide_packet_mode(self, packet_mode: Optional[bool],
                             sink) -> bool:
-        """Packet mode is the JAX package's compressed-domain graph; here
-        asking for it raises, and the automatic choice takes the frame
-        graph, saying so where the JAX package might have chosen packets
-        (a compressed file or rtsp:// source without an explicit sink)."""
-        if packet_mode:
-            raise NotImplementedError(PACKET_MODE_ITEM)
+        """Packet (compressed-domain) mode: the production passthrough path
+        relays H.264 access units byte-identically with NO decoder, exactly
+        like the reference's gstd/interpipe graph (GstdManager.cpp:155-229;
+        passthrough adds 10-20 ms vs 50-100 ms for decode+re-encode,
+        README_GSTD_INTERPIPE.md:157-158). Auto-on when both endpoints are
+        packet-capable: source is an Annex-B .h264 file or an rtsp:// URL,
+        output is .h264 / rtsp:// / null, and the native codec is present
+        (processing mode needs the decoder+encoder)."""
+        if packet_mode is not None:
+            return packet_mode
+        if sink is not None:
+            return False
+        from video_stab_tpu_torch.io.codec import available
         src = self.cfg.video_source
-        if packet_mode is None and sink is None and (
-                src.endswith(_PACKET_SOURCES) or src.startswith("rtsp://")):
-            self.log.info("%s; running the decoded-frame graph",
-                          PACKET_MODE_ITEM)
-        return False
+        out = self.cfg.output_source
+        container_codec = None
+        src_ok = (src.endswith((".h264", ".264", ".h265", ".265", ".hevc"))
+                  or src.startswith("rtsp://"))
+        if not src_ok and src.endswith((".mp4", ".m4v", ".mkv", ".mov")):
+            # A container is only packet-capable when its video stream is
+            # H.264/HEVC — the packet graph speaks nothing else (the demux
+            # BSF falls back to "null" for other codecs and the relay
+            # would ship undecodable bytes under an H264 announcement).
+            # One header-only demux open answers this; anything else
+            # (VP9/AV1/MPEG-4...) takes the frame graph, which cv2
+            # decodes fine.
+            try:
+                from video_stab_tpu_torch.io.codec import ContainerDemuxer
+                d = ContainerDemuxer(src)
+                container_codec = d.codec_name
+                src_ok = container_codec in ("h264", "hevc", "h265")
+                d.close()
+            except Exception:
+                src_ok = False
+        if not src_ok:
+            return False
+        out_ok = (not out or out == "null"
+                  or out.endswith((".h264", ".264", ".h265", ".265", ".hevc",
+                                   ".mp4", ".m4v", ".mkv", ".mov"))
+                  or out.startswith("rtsp://"))
+        enc_ok = available("libx264")
+        if src.endswith((".h265", ".265", ".hevc")) \
+                or container_codec in ("hevc", "h265") \
+                or out.endswith((".h265", ".265", ".hevc")):
+            # An HEVC stream stays HEVC through processing (the sink's
+            # rtpmap/mux and the encoder bridge are codec-threaded), so
+            # the packet route additionally needs the HEVC encoder; a
+            # libx264-only build would die mid-run at switch_processing()
+            # where the frame graph works fine.
+            enc_ok = enc_ok and available("libx265")
+        return src_ok and out_ok and enc_ok
 
     def _build_frame_graph(self, sink) -> None:
         """Decoded-frame graph (the vsg.cpp appsink/appsrc route)."""
@@ -143,6 +183,136 @@ class StabilizerApp:
         self.graph.add_pipeline("output",
                                 listen_to=self._initial_route(),
                                 sink=self.sink)
+
+    def _build_packet_graph(self) -> None:
+        """Compressed-domain graph: access units ride lossless channels; the
+        output pipeline's listen-to flips between the byte-identical
+        "source_pkt" relay and the decoded->processed->re-encoded
+        "processed_pkt" stream (GstdManager.cpp:155-229, 324-327;
+        vsg.cpp:418-525)."""
+        from video_stab_tpu_torch.io.packets import (PacketDecoderBridge,
+                                                     PacketEncoderBridge,
+                                                     open_packet_sink,
+                                                     open_packet_source)
+        src = self.cfg.video_source
+        fps = int(getattr(self.cfg.camera, "fps", 30) or 30)
+        # File sources are paced at the stream rate: the graph models a
+        # LIVE relay (hot mode switches happen mid-stream, not after an
+        # instant drain of the whole file). Container ingest stays
+        # compressed too (native demux + mp4toannexb — the reference's
+        # qtdemux stage).
+        self.source = open_packet_source(src, realtime_fps=fps)
+        # The sink must speak the SOURCE's codec (an HEVC camera relayed
+        # through an H264-announcing RTSP sink would hand every client an
+        # undecodable stream); codec_name is known once the source is up
+        # (SDP rtpmap / container codec id / extension).
+        if hasattr(self.source, "start"):
+            self.source.start()
+        src_codec = getattr(self.source, "codec_name", "") or "h264"
+        sink_codec = "h265" if src_codec in ("hevc", "h265") else "h264"
+        self.sink = open_packet_sink(
+            self.cfg.output_source, fps=fps, codec=sink_codec)
+        self._pkt_decoder = PacketDecoderBridge()
+        # The re-encode branch must emit the codec the sink announces —
+        # processed HEVC stays HEVC end to end (ADVICE r3).
+        self._pkt_encoder = PacketEncoderBridge(fps=fps, codec=sink_codec)
+        self._pkt_wait_idr = True
+        self._pkt_active = self._initial_route() == "processed"
+        self._pkt_frame_hw = None     # (H, W) once a frame was decoded
+        # Lossless ordered channels (Channel depth > 1): dropping an access
+        # unit would break the decode chain and byte-identity.
+        self.graph.channel("source_pkt").depth = 256
+        self.graph.channel("processed_pkt").depth = 256
+        self.graph.add_pipeline("source", source=self.source,
+                                publish_to="source_pkt")
+        self.graph.add_pipeline("processing", listen_to="source_pkt",
+                                processor=self._process_packet,
+                                publish_to="processed_pkt")
+        self.graph.add_pipeline(
+            "output",
+            listen_to="processed_pkt" if self._pkt_active else "source_pkt",
+            sink=self.sink)
+        self.chain = self._packet_chain(self.chain, self.cfg)
+
+    def _packet_chain(self, chain, cfg: AppConfig):
+        """The chain the packet graph runs for ``cfg``: its only consumer
+        is the encoder bridge, so the BT.601 I420 conversion folds into
+        the device chain (half the device->host payload, no host swscale
+        pass — native/codec.cpp vs_enc_encode_yuv). BGR is kept when a
+        tracker overlay must draw on the decoded frames, and when the
+        decoded frame size is known and I420 cannot hold it
+        (``bgr_to_i420`` needs H % 4 == 0 and W % 2 == 0)."""
+        if (not self.packet_mode or chain is None
+                or cfg.mode.tracker_enabled):
+            return chain
+        hw = self._pkt_frame_hw
+        if hw is not None and (hw[0] % 4 or hw[1] % 2):
+            return chain
+        return chain.with_output_format("i420")
+
+    def _fit_packet_frame(self, frame: np.ndarray) -> None:
+        """Note the decoded frame size; a chain set to I420 goes back to
+        BGR when the size cannot be held in I420 (such a chain has run no
+        frame: ``bgr_to_i420`` would have raised). Checked on every frame,
+        so an I420 chain that a reload built before the first decode and
+        swapped in after it is fitted too."""
+        hw = tuple(frame.shape[:2])
+        with self._lock:
+            self._pkt_frame_hw = hw
+            chain = self.chain
+            if (chain is not None and chain.params.output_format == "i420"
+                    and (hw[0] % 4 or hw[1] % 2)):
+                self.log.info("frame %dx%d does not fit I420; the chain "
+                              "delivers BGR", hw[1], hw[0])
+                self.chain = chain.with_output_format("bgr")
+
+    @property
+    def decoder_constructed(self) -> bool:
+        """True once the packet graph has EVER instantiated its decoder —
+        stays False over a pure passthrough run (the reference's no-decoder
+        guarantee for passthrough mode). Sticky across stop() so it can be
+        asserted post-run."""
+        return self.packet_mode and self._pkt_decoder.ever_constructed
+
+    def _process_packet(self, au):
+        """Processing branch of the packet graph. In passthrough it drops
+        units WITHOUT decoding (the decoder is never constructed); when
+        processing is switched on mid-stream it waits for the next IDR,
+        attaches the decoder, runs the frame chain, and re-encodes."""
+        if not self._pkt_active:
+            self._pkt_wait_idr = True
+            return None
+        from video_stab_tpu_torch.io.codec import is_irap
+        src_codec = getattr(self.source, "codec_name", "") or "h264"
+        is_hevc = src_codec in ("hevc", "h265")
+        if is_hevc and not self._pkt_decoder.decoder_constructed:
+            self._pkt_decoder.codec = "hevc"
+        if self._pkt_wait_idr:
+            if not any(is_irap(n, src_codec) for n in au):
+                return None         # resume at the next gop boundary
+            self._pkt_wait_idr = False
+        out_nals = []
+        for frame in self._pkt_decoder.decode_unit(au):
+            self._fit_packet_frame(frame)
+            out = self._process_frame(frame)
+            if out is None:
+                continue
+            # Dispatch on the frame's own layout — device-emitted planar
+            # I420 is 2-D (H*3/2, W), BGR is 3-D. Keying on the array
+            # (not self.chain) keeps this consistent with whatever chain
+            # produced it even if a hot reload swaps the chain between
+            # this read and _process_frame's snapshot.
+            if out.ndim == 2:
+                # Planar I420 goes straight into libx264 (no host
+                # swscale; half the D2H payload).
+                nals = self._pkt_encoder.encode_frame_yuv(
+                    np.ascontiguousarray(out))
+            else:
+                nals = self._pkt_encoder.encode_frame(
+                    np.ascontiguousarray(out[:, :, :3]))
+            if nals:
+                out_nals.extend(nals)
+        return out_nals or None
 
     # -- config / processors ----------------------------------------------
     def _make_processors(self, cfg: AppConfig) -> tuple:
@@ -190,7 +360,8 @@ class StabilizerApp:
         self.log.info("config changed; reloading")
         new_cfg = self._pinned(new_cfg)
         device = pick_device(new_cfg.mode.use_cuda)
-        procs = self._make_processors(new_cfg)
+        chain, *stages = self._make_processors(new_cfg)
+        procs = (self._packet_chain(chain, new_cfg), *stages)
         old_tracker = tracker = self._tracker
         if tracker is not None and (not new_cfg.mode.tracker_enabled
                                     or tracker.device != device):
@@ -272,10 +443,24 @@ class StabilizerApp:
 
     # -- interactive controls (vsg.cpp:1426-1451) ---------------------------
     def switch_passthrough(self):
-        self.graph.set_listen_to("output", "source")
+        if self.packet_mode:
+            self._pkt_active = False
+            self.graph.set_listen_to("output", "source_pkt")
+        else:
+            self.graph.set_listen_to("output", "source")
 
     def switch_processing(self):
-        self.graph.set_listen_to("output", "processed")
+        if self.packet_mode:
+            self._pkt_wait_idr = True     # decoder attaches at the next IDR
+            # Point the output at the processed channel BEFORE activating
+            # the re-encode branch: the listen_to setter captures the join
+            # cursor at call time, so ordering this first guarantees the
+            # branch's first emitted unit (SPS/PPS+IDR) is delivered even
+            # if it publishes before the output thread's next iteration.
+            self.graph.set_listen_to("output", "processed_pkt")
+            self._pkt_active = True
+        else:
+            self.graph.set_listen_to("output", "processed")
 
     def print_status(self):
         import json
@@ -318,7 +503,9 @@ class StabilizerApp:
             self.tcp.stop()
         if self.rest:
             self.rest.stop()
-        if self.chain is not None:
+        if self.chain is not None and not self.packet_mode:
+            # Packet sinks take access units, and the packet graph is a
+            # live relay (no end-of-file drain).
             # Drain the stabilizer's look-ahead queue into the sink before
             # the graph closes it — a finite stream otherwise loses its
             # last effective_radius frames (Stabilizer.cpp:394-400 flush).
@@ -333,6 +520,9 @@ class StabilizerApp:
             except Exception:  # noqa: BLE001
                 self.log.exception("end-of-stream drain failed")
         self.graph.stop()
+        if self.packet_mode:
+            self._pkt_decoder.close()
+            self._pkt_encoder.close()
         if self._tracker is not None:
             self._tracker.release()
 
@@ -342,4 +532,4 @@ def run_app(config_path: str, **kw) -> StabilizerApp:
     return StabilizerApp(cfg, config_path=config_path, **kw)
 
 
-__all__ = ["PACKET_MODE_ITEM", "StabilizerApp", "run_app"]
+__all__ = ["StabilizerApp", "run_app"]

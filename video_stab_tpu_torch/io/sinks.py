@@ -1,17 +1,18 @@
-"""Frame sinks — port of ``video_stab_tpu/io/sinks.py``.
+"""Frame sinks + host codec layer — port of ``video_stab_tpu/io/sinks.py``.
 
 Counterparts of the reference's output plumbing:
-- FileSink      <- the file-out path of the examples (cv2.VideoWriter).
+- H264FileSink  <- examples/JetsonEncoder.cpp (V4L2 HW H.264/H.265 with CBR
+                   rate control) — native libx264 encode (io/codec.py) with
+                   a *honored* bitrate and the reference's heuristics
+                   (RTSPServer.cpp:80, vsg.cpp:415, 1238).
+- ContainerSink <- the MP4-out path of the examples: native encode + in-C
+                   libavformat muxing (.mp4 / .mkv / .mov).
+- FileSink      <- the cv2.VideoWriter path (.avi and the other cv2
+                   targets).
 - MJPEGServer   <- a zero-dependency HTTP preview sink (every browser/VLC
-                   plays it).
+                   plays it). The real RTSP/H.264 server lives in
+                   io/rtsp.py (src/RTSPServer.cpp counterpart).
 - CallbackSink / NullSink for tests.
-
-The JAX package's encoder sinks (``H264FileSink`` for ``.h264`` /
-``.264``, ``ContainerSink`` for ``.mp4`` / ``.mkv`` / ``.mov`` and the
-``rtsp://`` server) stand on its native codec layer, which the port has
-not taken yet (ROADMAP queue 1 item 13b): ``open_sink`` raises
-``NotImplementedError`` for those targets rather than writing another
-format.
 """
 
 from __future__ import annotations
@@ -93,6 +94,85 @@ class FileSink(FrameSink):
     def close(self) -> None:
         if self._writer is not None:
             self._writer.release()
+            self._writer = None
+
+
+class H264FileSink(FrameSink):
+    """Annex-B H.264 elementary-stream writer with honored CBR bitrate.
+
+    The JetsonEncoder counterpart (examples/JetsonEncoder.cpp:129-194:
+    encodeFrame(cv::Mat) -> bitstream bytes; CBR config 22-116). Output is
+    a raw .h264 byte stream — playable/decodable everywhere (ffplay, VLC,
+    cv2.VideoCapture) and byte-relayable through the packet-domain channels.
+
+    ``bitrate_bps=0`` applies the reference app heuristic
+    clamp(w*h*fps*0.1, 2, 8 Mbps) (vsg.cpp:415, 1238).
+    """
+
+    def __init__(self, path: str, fps: float = 30.0, bitrate_bps: int = 0,
+                 codec: str = "libx264", zerolatency: bool = True):
+        self.path = path
+        self.fps = fps
+        self.bitrate_bps = bitrate_bps
+        self.codec = codec
+        self.zerolatency = zerolatency
+        self._encoder = None
+        self._file = None
+        self.frames_written = 0
+
+    def write(self, frame: np.ndarray) -> None:
+        from video_stab_tpu_torch.io.codec import VideoEncoder
+        if self._encoder is None:
+            h, w = frame.shape[:2]
+            bps = self.bitrate_bps or bitrate_bps_app(w, h, int(self.fps))
+            self._encoder = VideoEncoder(
+                w, h, self.fps, bitrate_bps=bps, codec=self.codec,
+                zerolatency=self.zerolatency)
+            self._file = open(self.path, "wb")
+        self._file.write(self._encoder.encode(frame))
+        self.frames_written += 1
+
+    def measured_bitrate_bps(self) -> float:
+        return self._encoder.measured_bitrate_bps() if self._encoder else 0.0
+
+    def close(self) -> None:
+        if self._encoder is not None:
+            self._file.write(self._encoder.flush())
+            self._encoder.close()
+            self._encoder = None
+        if self._file is not None:
+            self._file.close()
+            self._file = None
+
+
+class ContainerSink(FrameSink):
+    """H.264-in-MP4/MKV writer with honored CBR bitrate (native encode +
+    in-C libavformat muxing). Where the native codec layer is missing,
+    the first ``write`` raises with its build's message: unlike the JAX
+    package, the port writes no cv2 file in its place."""
+
+    def __init__(self, path: str, fps: float = 30.0, bitrate_bps: int = 0,
+                 codec: str = "libx264"):
+        self.path = path
+        self.fps = fps
+        self.bitrate_bps = bitrate_bps
+        self.codec = codec
+        self._writer = None
+        self.frames_written = 0
+
+    def write(self, frame: np.ndarray) -> None:
+        if self._writer is None:
+            from video_stab_tpu_torch.io.codec import ContainerWriter
+            h, w = frame.shape[:2]
+            bps = self.bitrate_bps or bitrate_bps_app(w, h, int(self.fps))
+            self._writer = ContainerWriter(
+                self.path, w, h, self.fps, bitrate_bps=bps, codec=self.codec)
+        self._writer.write(frame)
+        self.frames_written += 1
+
+    def close(self) -> None:
+        if self._writer is not None:
+            self._writer.close()
             self._writer = None
 
 
@@ -186,37 +266,41 @@ class MJPEGServer(FrameSink):
             self._server = None
 
 
-ENCODER_SINKS_ITEM = ("the native codec layer's encoder sinks (.h264, "
-                      ".264, .mp4, .mkv, .mov and rtsp://) are not ported "
-                      "yet: ROADMAP queue 1 item 13b")
-
-
 def open_sink(target: str, fps: float = 30.0) -> FrameSink:
     """Sink dispatch (the output half of CamCap's source dispatch,
     CamCap.cpp:22-77):
 
     - "" / "null"            -> NullSink
+    - "rtsp://[host]:PORT/m" -> RTSPServer (native H.264, io/rtsp.py)
     - "mjpeg://:PORT/mount"  -> MJPEGServer (HTTP preview)
-    - "rtsp://...", "*.h264", "*.264", "*.mp4", "*.mkv", "*.mov"
-                             -> NotImplementedError (ROADMAP item 13b)
+    - "*.h264", "*.264"      -> H264FileSink (native CBR encode)
+    - "*.mp4", "*.mkv", "*.mov"
+                             -> ContainerSink (native encode + mux)
     - anything else          -> FileSink (cv2 writer, e.g. .avi)
     """
     if not target or target == "null":
         return NullSink()
     if target.startswith("rtsp://"):
-        raise NotImplementedError(f"{target}: {ENCODER_SINKS_ITEM}")
+        from video_stab_tpu_torch.io.rtsp import RTSPServer
+        rest = target[len("rtsp://"):]
+        host_port, _, mount = rest.partition("/")
+        port = int(host_port.rsplit(":", 1)[-1]) if ":" in host_port \
+            else 8554
+        return RTSPServer(port=port, mount="/" + (mount or "stream"),
+                          fps=int(fps)).start()
     if target.startswith("mjpeg://"):
         rest = target[len("mjpeg://"):]
         host_port, _, mount = rest.partition("/")
         port = int(host_port.rsplit(":", 1)[-1]) if ":" in host_port \
             else int(host_port or 8554)
         return MJPEGServer(port=port, mount="/" + (mount or "stream")).start()
-    if target.endswith(".h264") or target.endswith(".264") or \
-            target.rsplit(".", 1)[-1].lower() in ("mp4", "mkv", "mov"):
-        raise NotImplementedError(f"{target}: {ENCODER_SINKS_ITEM}")
+    if target.endswith(".h264") or target.endswith(".264"):
+        return H264FileSink(target, fps=fps)
+    if target.rsplit(".", 1)[-1].lower() in ("mp4", "mkv", "mov"):
+        return ContainerSink(target, fps=fps)
     return FileSink(target, EncoderParams(fps=fps))
 
 
-__all__ = ["CallbackSink", "EncoderParams", "FileSink", "FrameSink",
-           "MJPEGServer", "NullSink", "bitrate_bps_app",
-           "bitrate_kbps_server", "open_sink"]
+__all__ = ["CallbackSink", "ContainerSink", "EncoderParams", "FileSink",
+           "FrameSink", "H264FileSink", "MJPEGServer", "NullSink",
+           "bitrate_bps_app", "bitrate_kbps_server", "open_sink"]

@@ -7,13 +7,13 @@ Each source under ``csrc/`` is compiled for ``sm_90a`` by its own
 seconds; tensors cross as ``data_ptr()`` integers and the launch goes on
 PyTorch's current stream. The library's file name carries a hash of the
 sources and flags, so an edited source is rebuilt and a built one is
-reused. The build runs at first use, never at import.
+reused. The build runs at first use, never at import, under the lock of
+``native.build_locked`` (the host library's build uses it too).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
 import subprocess
@@ -21,6 +21,8 @@ import threading
 from pathlib import Path
 
 import torch
+
+from video_stab_tpu_torch import native
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("warp.cu", "features.cu", "enhance.cu", "traj.cu", "lk.cu")
@@ -88,49 +90,41 @@ def _nvcc() -> str:
                        "are built from source at first use")
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update((CSRC / name).read_bytes())
-    return h.hexdigest()[:16]
-
-
 def build() -> Path:
     """Compile the sources unless a library for them exists; return its path.
-    The compilers' output (with ptxas's register and spill report) is kept
-    beside the library as ``<name>.log``."""
-    out_dir = build_dir()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    lib = out_dir / f"libvstab_torch_kernels_{_digest()}.so"
-    if lib.exists():
-        return lib
-    stem = f"{lib.stem}.{os.getpid()}"
-    objs = [out_dir / f"{stem}.{Path(s).stem}.o" for s in SOURCES]
-    cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
-            for s, o in zip(SOURCES, objs)]
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for c in cmds]
-    outs = [p.communicate()[0] for p in procs]
-    tmp = lib.with_name(f"{stem}.tmp")
-    link = [_nvcc(), "-gencode=arch=compute_90a,code=sm_90a", "-shared",
-            "-o", str(tmp), *map(str, objs)]
-    log = [" ".join(c) + "\n" + o for c, o in zip(cmds, outs)]
-    failed = [c for c, p in zip(cmds, procs) if p.returncode != 0]
-    if not failed:
-        proc = subprocess.run(link, capture_output=True, text=True,
-                              check=False)
-        log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            failed.append(link)
-    lib.with_suffix(".log").write_text("\n".join(log))
-    for o in objs:
-        o.unlink(missing_ok=True)
-    if failed:
-        raise RuntimeError(f"nvcc failed: {' '.join(failed[0])}\n"
-                           + "\n".join(log))
-    os.replace(tmp, lib)
-    return lib
+    Under the lock of :func:`native.build_locked`, so parallel processes
+    build once. The compilers' output (with ptxas's register and spill
+    report) is kept beside the library as ``<name>.log``."""
+    lib = native.library_file(build_dir(), "vstab_torch_kernels",
+                              NVCC_FLAGS, [CSRC / s for s in SOURCES])
+
+    def compile_to(tmp: Path) -> None:
+        objs = [tmp.with_name(f"{tmp.name}.{Path(s).stem}.o")
+                for s in SOURCES]
+        cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+                for s, o in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        outs = [p.communicate()[0] for p in procs]
+        link = [_nvcc(), "-gencode=arch=compute_90a,code=sm_90a", "-shared",
+                "-o", str(tmp), *map(str, objs)]
+        log = [" ".join(c) + "\n" + o for c, o in zip(cmds, outs)]
+        failed = [c for c, p in zip(cmds, procs) if p.returncode != 0]
+        if not failed:
+            proc = subprocess.run(link, capture_output=True, text=True,
+                                  check=False)
+            log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(link)
+        lib.with_suffix(".log").write_text("\n".join(log))
+        for o in objs:
+            o.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError(f"nvcc failed: {' '.join(failed[0])}\n"
+                               + "\n".join(log))
+
+    return native.build_locked(lib, "vstab_torch_kernels", compile_to)
 
 
 def library() -> ctypes.CDLL:

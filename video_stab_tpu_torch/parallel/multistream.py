@@ -265,8 +265,7 @@ def serve_remote_streams(server, stabilizer: MultiStreamStabilizer,
     """The serving host's main loop: a frame server's fan-in coupled to the
     batched step. ``server`` is any object with ``read_batch(ids,
     timeout=)`` returning the lockstep (N, H, W, 3) batch, or None while
-    not every stream has fed (the JAX package's
-    ``io.remote.RemoteFrameServer`` is one).
+    not every stream has fed (``io.remote.RemoteFrameServer`` is one).
 
     Each tick one ``stabilize_batch`` call advances all N streams, and
     ``on_output(stream_id, frame)`` fires for every stream the warm-up gate
