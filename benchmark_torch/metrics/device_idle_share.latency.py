@@ -1,0 +1,4 @@
+"""Layer device: ``readings.device_idle_share``, read in the cells
+whose end-to-end metric is frame_latency_p95_ms."""
+
+from benchmark_torch.readings import device_idle_share as read  # noqa: F401
