@@ -1,0 +1,4 @@
+"""Layer step: ``spans.step_host_ms_per_frame``, read in the cells whose
+end-to-end metric is frames_per_s."""
+
+from benchmark_torch.spans import step_host_ms_per_frame as read  # noqa: F401

@@ -72,7 +72,9 @@ Phases (any failure is an uncaught exception and a nonzero exit):
       parameters at 1920x1080 over 64 frames of textured content with a
       ~2 deg tilted horizon and per-frame jitter, then ``flush()``; output
       frames, the roll angle and the queue drain are checked (K1, K3, K4,
-      K6);
+      K6), and the GFTT NMS's host reads and rounds printed (the
+      ``nms_reads`` and ``nms_rounds`` counters of
+      ``utils.telemetry.counters()``);
    b. the streaming homography ``Stabilizer`` (smoothing_radius=15) at
       1920x1080 over 64 frames, then ``flush()`` (K2, K3, K6); its host
       reads per steady-state frame are counted with torch's sync debug
@@ -122,7 +124,8 @@ Phases (any failure is an uncaught exception and a nonzero exit):
       (the seeded untrained detector at 640x384), through the threaded
       frame graph into a ``CallbackSink`` until 96 frames came out: frames
       out, warm-up frames, the p50 ms of the ``fused_chain`` and ``track``
-      stages, the detector's mean ms, the app's frames/s, peak memory and
+      stages, the detector's mean ms, the app's frames/s (over the last
+      120 frames the sink received), peak memory and
       K1 / K3 / K4 head / K4 tail / K6 launches per output frame; hot
       reload from ``configs/default.yaml`` (every toggle off: the output
       listens to "source", no kernel launches) to the stabilizer on and
@@ -1261,12 +1264,14 @@ def wide_band_config() -> dict:
 def run_slice(torch, dev, pool) -> dict:
     """Phase 4: the entry() chain at 1080p, counters zeroed around it."""
     from video_stab_tpu_torch.core.chain import ProcessingChain
-    from video_stab_tpu_torch.ops import features as tfeat
+    from video_stab_tpu_torch.ops.features import NMS_ROUNDS_PER_SYNC
+    from video_stab_tpu_torch.utils import telemetry
 
     chain = ProcessingChain(**entry_params())
     radius = chain.params.stabilizer.effective_radius
     zero_counts()
-    syncs0 = tfeat.NMS_SYNCS
+    counts0 = telemetry.counters()
+    syncs0 = counts0.get("nms_reads", 0)
     outs = []
     for i in range(N_FRAMES):
         out = chain.process_device(pool[i])
@@ -1276,10 +1281,16 @@ def run_slice(torch, dev, pool) -> dict:
     launches = {name: n for name, n in read_counts().items()
                 if name in ("warp_affine_u8", "corner_response",
                             "enhance_u8", "lk_track")}
-    nms_syncs = tfeat.NMS_SYNCS - syncs0
+    counts = telemetry.counters()
+    nms_syncs = counts.get("nms_reads", 0) - syncs0
+    nms_rounds = counts.get("nms_rounds", 0) - counts0.get("nms_rounds", 0)
     print(f"slice: launches during the main path {launches}")
     print(f"slice: NMS host reads {nms_syncs} over {N_FRAMES} frames "
           f"({N_FRAMES // 2 + 1} GFTT runs)")
+    print(f"slice: NMS rounds {nms_rounds} over {N_FRAMES} frames "
+          f"({NMS_ROUNDS_PER_SYNC} a host read)")
+    assert nms_rounds == NMS_ROUNDS_PER_SYNC * nms_syncs, \
+        (nms_rounds, nms_syncs)
     assert all(n > 0 for n in launches.values()), launches
 
     assert outs and outs[0][0] == radius - 1, [i for i, _ in outs[:3]]
@@ -1398,10 +1409,10 @@ def count_syncs(torch, label, step, frames):
     GFTT NMS reads the library counted itself)."""
     import warnings
 
-    from video_stab_tpu_torch.ops import features as tfeat
+    from video_stab_tpu_torch.utils import telemetry
 
     torch.cuda.synchronize()
-    nms0 = tfeat.NMS_SYNCS
+    nms0 = telemetry.counters().get("nms_reads", 0)
     n_win = len(frames)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -1416,7 +1427,7 @@ def count_syncs(torch, label, step, frames):
     # printed below.
     syncs = [w for w in caught if "synchroniz" in str(w.message)
              and "video_stab_tpu_torch" in w.filename]
-    nms = tfeat.NMS_SYNCS - nms0
+    nms = telemetry.counters().get("nms_reads", 0) - nms0
     by_line = collections.Counter(
         f"{w.filename.split('video_stab_tpu_torch/')[-1]}:{w.lineno}"
         for w in syncs)
@@ -1540,12 +1551,12 @@ def run_variants(torch, dev, pool) -> tuple[dict, dict]:
     (attributed to the GFTT NMS and the legacy re-detect flag, which their
     libraries count), then ``flush()``; the canvas run's peak device
     memory. -> (launches by run, numbers by run)"""
-    from video_stab_tpu_torch.core import legacy as tlegacy
     from video_stab_tpu_torch.core.canvas import canvas_shape
     from video_stab_tpu_torch.core.legacy import LegacyStabilizer
     from video_stab_tpu_torch.core.params import ModeParams, StabilizerParams
     from video_stab_tpu_torch.core.stabilizer import Stabilizer
     from video_stab_tpu_torch.models.deepstab import DeepStabNet
+    from video_stab_tpu_torch.utils import telemetry
 
     by_run, numbers = {}, {}
     for name, kw in VARIANTS.items():
@@ -1569,11 +1580,11 @@ def run_variants(torch, dev, pool) -> tuple[dict, dict]:
         end.record()
         end.synchronize()
         ms = start.elapsed_time(end) / VARIANT_TIMED
-        flags0 = tlegacy.REDETECT_READS
+        flags0 = telemetry.counters().get("legacy_redetect_reads", 0)
         by_line, n_syncs, nms = count_syncs(
             torch, label, lambda f: outs.append(stab.stabilize_device(f)),
             pool[timed_to:VARIANT_FRAMES])
-        flags = tlegacy.REDETECT_READS - flags0
+        flags = telemetry.counters().get("legacy_redetect_reads", 0) - flags0
         flushed = []
         while (f := stab.flush()) is not None:
             flushed.append(f)
@@ -2827,6 +2838,7 @@ def small_reference_multistream(torch) -> None:
 # Phase 4h: the application (``io/runner.py:StabilizerApp``), the detector
 # and the CLI on the card.
 APP_FRAMES = 96                  # output frames of the 1080p app run
+APP_FPS_WINDOW = 120             # the app's frames/s: the sink's last frames
 APP_RELOAD_CYCLES = 3
 WIRING_FRAMES = 32
 DETECTOR_FRAMES = 4
@@ -2878,8 +2890,10 @@ def app_full_width(torch, tracker: bool = True, frames_in=None,
         cfg, video_source=f"synthetic:{APP_W}x{APP_H}",
         mode=dataclasses.replace(cfg.mode, tracker_enabled=tracker))
     delivered = {"n": 0, "last": None}
+    stamps = collections.deque(maxlen=APP_FPS_WINDOW)
 
     def receive(frame):
+        stamps.append(time.perf_counter())
         delivered["n"] += 1
         delivered["last"] = frame
 
@@ -2921,7 +2935,6 @@ def app_full_width(torch, tracker: bool = True, frames_in=None,
     peak = _mib(torch.cuda.max_memory_allocated() - base)
     frames = app._frames_out
     stages = app.metrics.timer.summary()
-    stamps = app.metrics.fps._stamps
     fps = (len(stamps) - 1) / (stamps[-1] - stamps[0])
     per_frame = {k: launches[k] / frames for k in APP_KERNELS}
     last = delivered["last"]

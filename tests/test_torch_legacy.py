@@ -30,6 +30,7 @@ from video_stab_tpu_torch.core.params import (  # noqa: E402
     ModeParams,
 )
 from video_stab_tpu_torch.motion import estimate as test_  # noqa: E402
+from video_stab_tpu_torch.utils import telemetry  # noqa: E402
 
 CPU = ModeParams(use_cuda=False)
 STREAM = dict(smoothing_radius=8, max_corners=120, min_distance=8.0,
@@ -158,9 +159,10 @@ def test_legacy_reads_one_flag_per_frame():
     """The re-detect flag is the analyze step's one host read."""
     frames, _ = make_clip(n=6, seed=3)
     t = tlegacy.LegacyStabilizer(LegacyStabilizerParams(**STREAM), mode=CPU)
-    before = tlegacy.REDETECT_READS
+    before = telemetry.counters().get("legacy_redetect_reads", 0)
     for f in frames:
         t.stabilize(f)
-    assert tlegacy.REDETECT_READS - before == len(frames) - 1
+    assert telemetry.counters()["legacy_redetect_reads"] - before == \
+        len(frames) - 1
     t.clean()
     assert t._state is None and t.stabilize(frames[0]) is not None

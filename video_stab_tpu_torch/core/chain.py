@@ -73,6 +73,7 @@ from video_stab_tpu_torch.ops.warp import (
     rotation_matrix_2d,
     warp_affine_fast,
 )
+from video_stab_tpu_torch.utils import telemetry
 
 
 class ChainParams(NamedTuple):
@@ -162,20 +163,22 @@ def _pre_stages(params: ChainParams, state: ChainState,
     Returns (roll_state, u8 frame)."""
     roll_on = params.mode.roll_correction_enabled
     if params.mode.enhancer_enabled:
-        f_u8, gray = enhance_frame_u8(params.enhancer, frame_u8,
-                                      want_gray=roll_on)
+        with telemetry.trace("vstab.enhance"):
+            f_u8, gray = enhance_frame_u8(params.enhancer, frame_u8,
+                                          want_gray=roll_on)
     else:
         f_u8 = frame_u8
         gray = bgr_to_gray(frame_u8.float()) if roll_on else None
     if not roll_on:
         return state.roll, f_u8
-    roll_state = estimate_roll_angle(params.roll, state.roll, gray)
-    h, w = f_u8.shape[:2]
-    rot = rotation_matrix_2d(w / 2.0, h / 2.0, roll_state.smoothed_angle)
-    f_u8 = warp_affine_u8(f_u8, rot, border_mode=BORDER_REPLICATE)
-    if params.azc.enabled:
-        f_u8 = saturate_u8(auto_zoom_crop_f32(params.azc, f_u8.float(),
-                                              keep_input_size=True))
+    with telemetry.trace("vstab.roll"):
+        roll_state = estimate_roll_angle(params.roll, state.roll, gray)
+        h, w = f_u8.shape[:2]
+        rot = rotation_matrix_2d(w / 2.0, h / 2.0, roll_state.smoothed_angle)
+        f_u8 = warp_affine_u8(f_u8, rot, border_mode=BORDER_REPLICATE)
+        if params.azc.enabled:
+            f_u8 = saturate_u8(auto_zoom_crop_f32(
+                params.azc, f_u8.float(), keep_input_size=True))
     return roll_state, f_u8
 
 
@@ -185,28 +188,32 @@ def _pre_stages_fused(params: ChainParams, state: ChainState,
     ANALYSIS-scale gray, and hand back the UNROTATED enhanced frame plus the
     angle. Returns (roll_state, frame_u8, alpha, gray_rot)."""
     if params.mode.enhancer_enabled:
-        f_u8, gray_full = enhance_frame_u8(params.enhancer, frame_u8,
-                                           want_gray=True)
+        with telemetry.trace("vstab.enhance"):
+            f_u8, gray_full = enhance_frame_u8(params.enhancer, frame_u8,
+                                               want_gray=True)
     else:
         f_u8, gray_full = frame_u8, bgr_to_gray(frame_u8.float())
-    roll_state = estimate_roll_angle(params.roll, state.roll, gray_full)
-    alpha = roll_state.smoothed_angle
-    h, w = frame_u8.shape[:2]
-    sp = params.stabilizer
-    gray = _analysis_gray(sp, gray_full)
-    # Rotation about the full-res center conjugated into analysis space,
-    # A = S R S^-1 (exact for anisotropic analysis scaling).
-    sx = sp.analysis_width / w
-    sy = sp.analysis_height / h
-    r = rotation_matrix_2d(w / 2.0, h / 2.0, alpha)
-    a_mat = torch.stack([
-        torch.stack([r[0, 0], r[0, 1] * (sx / sy), r[0, 2] * sx]),
-        torch.stack([r[1, 0] * (sy / sx), r[1, 1], r[1, 2] * sy]),
-    ])
-    # alpha == 0 keeps the unrotated gray (the JAX identity skip) as a
-    # select, so the warp always runs and nothing is read back.
-    gray_rot = warp_affine_fast(gray, a_mat, border_mode=BORDER_REPLICATE)
-    gray_rot = torch.where(alpha == 0.0, gray, gray_rot.to(torch.float32))
+    with telemetry.trace("vstab.roll"):
+        roll_state = estimate_roll_angle(params.roll, state.roll, gray_full)
+        alpha = roll_state.smoothed_angle
+        h, w = frame_u8.shape[:2]
+        sp = params.stabilizer
+        gray = _analysis_gray(sp, gray_full)
+        # Rotation about the full-res center conjugated into analysis
+        # space, A = S R S^-1 (exact for anisotropic analysis scaling).
+        sx = sp.analysis_width / w
+        sy = sp.analysis_height / h
+        r = rotation_matrix_2d(w / 2.0, h / 2.0, alpha)
+        a_mat = torch.stack([
+            torch.stack([r[0, 0], r[0, 1] * (sx / sy), r[0, 2] * sx]),
+            torch.stack([r[1, 0] * (sy / sx), r[1, 1], r[1, 2] * sy]),
+        ])
+        # alpha == 0 keeps the unrotated gray (the JAX identity skip) as a
+        # select, so the warp always runs and nothing is read back.
+        gray_rot = warp_affine_fast(gray, a_mat,
+                                    border_mode=BORDER_REPLICATE)
+        gray_rot = torch.where(alpha == 0.0, gray,
+                               gray_rot.to(torch.float32))
     return roll_state, f_u8, alpha, gray_rot
 
 
@@ -317,10 +324,11 @@ class _InFlight(NamedTuple):
     copied: Optional[torch.cuda.Event] = None
 
     def numpy(self) -> np.ndarray:
-        if self.host is None:
-            return self.out.cpu().numpy()
-        self.copied.synchronize()
-        return self.host.numpy()
+        with telemetry.trace("vstab.download"):
+            if self.host is None:
+                return self.out.cpu().numpy()
+            self.copied.synchronize()
+            return self.host.numpy()
 
 
 class ProcessingChain:
@@ -385,45 +393,50 @@ class ProcessingChain:
     def _step(self, frame) -> Optional[torch.Tensor]:
         """One chain step; the delivered frame on the device, or None
         during the stabilizer warm-up."""
-        frame = as_device_frame(frame, self.device)
-        h, w = frame.shape[:2]
-        if self._state is None:
-            self._state = chain_state_init(self.params, h, w, self.device)
-            self._shape = (h, w)
-        elif self._shape != (h, w):
-            raise ValueError("frame size changed; recreate the chain")
-        p = self.params
-        if p.mode.stabilizer_enabled and self._frames_in == 0:
-            self._state = chain_init_step_fn(p, self._state, frame)
-            self._frames_in = 1
-            return None
-        self._state, out, _ready = chain_gated_step_fn(
-            p, self._state, frame, redetect_tick=self._frames_in,
-            ransac_draws=self.ransac_draws)
-        self._frames_in += 1
-        if p.mode.stabilizer_enabled:
-            if self._frames_in - self._emitted < \
-                    p.stabilizer.effective_radius:
+        with telemetry.trace("vstab.upload"):
+            frame = as_device_frame(frame, self.device)
+        with telemetry.trace("vstab.step"):
+            h, w = frame.shape[:2]
+            if self._state is None:
+                self._state = chain_state_init(self.params, h, w,
+                                               self.device)
+                self._shape = (h, w)
+            elif self._shape != (h, w):
+                raise ValueError("frame size changed; recreate the chain")
+            p = self.params
+            if p.mode.stabilizer_enabled and self._frames_in == 0:
+                self._state = chain_init_step_fn(p, self._state, frame)
+                self._frames_in = 1
                 return None
-            self._emitted += 1
-        return out
+            self._state, out, _ready = chain_gated_step_fn(
+                p, self._state, frame, redetect_tick=self._frames_in,
+                ransac_draws=self.ransac_draws)
+            self._frames_in += 1
+            if p.mode.stabilizer_enabled:
+                if self._frames_in - self._emitted < \
+                        p.stabilizer.effective_radius:
+                    return None
+                self._emitted += 1
+            return out
 
     def _start_copy(self, out: torch.Tensor) -> _InFlight:
         """Start the copy of ``out`` to pinned host memory on the side
         stream, after the work that produced it."""
         if not out.is_cuda:
             return _InFlight(out)
-        if self._copy_stream is None:
-            self._copy_stream = torch.cuda.Stream(out.device)
-        self._copy_stream.wait_stream(torch.cuda.current_stream(out.device))
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        with torch.cuda.stream(self._copy_stream):
-            host.copy_(out, non_blocking=True)
-            copied = torch.cuda.Event()
-            copied.record()
-        # The allocator may reuse out's memory only after the copy.
-        out.record_stream(self._copy_stream)
-        return _InFlight(out, host, copied)
+        with telemetry.trace("vstab.download"):
+            if self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(out.device)
+            self._copy_stream.wait_stream(
+                torch.cuda.current_stream(out.device))
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            with torch.cuda.stream(self._copy_stream):
+                host.copy_(out, non_blocking=True)
+                copied = torch.cuda.Event()
+                copied.record()
+            # The allocator may reuse out's memory only after the copy.
+            out.record_stream(self._copy_stream)
+            return _InFlight(out, host, copied)
 
     def process_device(self, frame) -> Optional[torch.Tensor]:
         """One step per frame; the processed frame as a device tensor (None
@@ -436,13 +449,15 @@ class ProcessingChain:
         return None if prev is None else prev.out
 
     def process(self, frame) -> Optional[np.ndarray]:
-        out = self._step(frame)
-        if out is None:
-            return None
-        if not self.pipelined:
-            return out.cpu().numpy()
-        prev, self._pending = self._pending, self._start_copy(out)
-        return None if prev is None else prev.numpy()
+        with telemetry.trace("vstab.process"):
+            out = self._step(frame)
+            if out is None:
+                return None
+            if not self.pipelined:
+                with telemetry.trace("vstab.download"):
+                    return out.cpu().numpy()
+            prev, self._pending = self._pending, self._start_copy(out)
+            return None if prev is None else prev.numpy()
 
     def drain(self) -> Optional[np.ndarray]:
         """Pipelined mode: fetch the last in-flight frame."""
@@ -460,7 +475,8 @@ class ProcessingChain:
             return None
         self._state, out = chain_flush_step_fn(p, self._state)
         self._emitted += 1
-        return out.cpu().numpy()
+        with telemetry.trace("vstab.download"):
+            return out.cpu().numpy()
 
     def clean(self) -> None:
         self._state = None

@@ -9,7 +9,8 @@ solve -> shake damping -> push the rings. The emit smooths the path with
 a centred box and warps the queued frame (K1) with ``border_type``.
 
 The re-detect decision depends on how many points LK kept, a device value.
-The step reads that one flag back (``REDETECT_READS`` counts the reads)
+The step reads that one flag back (the counter ``legacy_redetect_reads``
+of ``utils.telemetry.counters()`` counts the reads)
 and runs the detector only when it fires, where the JAX package takes a
 ``lax.cond``; the readiness of the emit comes from host counters.
 """
@@ -36,8 +37,7 @@ from video_stab_tpu_torch.ops.lk import lk_track
 from video_stab_tpu_torch.ops.warp import (border_mode_from_name,
                                            similarity_matrix,
                                            warp_affine_fast)
-
-REDETECT_READS = 0   # host reads of the re-detect flag since import
+from video_stab_tpu_torch.utils import telemetry
 
 
 def _detect_features(params: LegacyStabilizerParams, gray: torch.Tensor):
@@ -77,7 +77,6 @@ def legacy_analyze_step_fn(params: LegacyStabilizerParams, state: LegacyState,
                            frame_u8: torch.Tensor
                            ) -> tuple[LegacyState, dict]:
     """generateTransform (Stabilizer_legacy.cpp:195-281)."""
-    global REDETECT_READS
     gray = bgr_to_gray(frame_u8.float())
     curr_pts, status, err = lk_track(
         state.prev_gray, gray, state.prev_pts, state.prev_mask,
@@ -109,7 +108,7 @@ def legacy_analyze_step_fn(params: LegacyStabilizerParams, state: LegacyState,
     fsd = torch.where(low_features, state.frames_since_detect,
                       state.frames_since_detect + 1)
     do_redetect = low_features | (fsd > params.redetect_interval)
-    REDETECT_READS += 1
+    telemetry.count("legacy_redetect_reads")
     if bool(do_redetect):
         prev_pts, prev_mask = _detect_features(params, gray)
     else:

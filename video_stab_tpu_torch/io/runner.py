@@ -400,7 +400,6 @@ class StabilizerApp:
                     sel = self.tcp.try_get_latest() if self.tcp else None
                     frame = tracker.draw_detections(
                         frame, dets, *(sel or (-1, -1)))
-            self.metrics.fps.tick()
             self.metrics.inc("frames_out")
             self._frames_out += 1
             return frame
@@ -436,7 +435,6 @@ class StabilizerApp:
                     frame = tracker.draw_detections(frame, dets, *sel)
                 else:
                     frame = tracker.draw_detections(frame, dets)
-        self.metrics.fps.tick()
         self.metrics.inc("frames_out")
         self._frames_out += 1
         return frame

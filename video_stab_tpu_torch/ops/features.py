@@ -25,12 +25,14 @@ from video_stab_tpu_torch.kernels.features import (  # noqa: F401 (re-export)
     dilate3x3 as _dilate3x3,
     min_eig_response,
 )
+from video_stab_tpu_torch.utils import telemetry
 
 # Rounds of the greedy selection run between two checks for convergence.
 # Each check is one device->host read; real content converges in < 10
-# rounds, so a frame's detection costs one or two reads.
+# rounds, so a frame's detection costs one or two reads. The counters
+# ``nms_reads`` and ``nms_rounds`` (``utils.telemetry.counters()``) count
+# the reads and the rounds run.
 NMS_ROUNDS_PER_SYNC = 8
-NMS_SYNCS = 0   # host reads the NMS loop has made since import
 
 
 def top_candidates(values: torch.Tensor, k: int
@@ -102,7 +104,6 @@ def _nms_compact(top_vals: torch.Tensor, top_idx: torch.Tensor, w: int,
     SUPPRESS i when a selected j conflicts with it. Rounds past convergence
     change nothing, so ``NMS_ROUNDS_PER_SYNC`` rounds run between two reads
     of the convergence flag."""
-    global NMS_SYNCS
     n_cand = top_vals.shape[-1]
     lead = tuple(top_vals.shape[:-1])
     dev = top_vals.device
@@ -128,8 +129,11 @@ def _nms_compact(top_vals: torch.Tensor, top_idx: torch.Tensor, w: int,
             selected = selected | newly
             suppressed = (conflict & selected[..., None, :]).any(dim=-1)
             unknown = unknown & ~newly & ~suppressed
-        NMS_SYNCS += 1
-        if not bool(unknown.any()):
+        telemetry.count("nms_rounds", NMS_ROUNDS_PER_SYNC)
+        telemetry.count("nms_reads")
+        with telemetry.trace("vstab.nms_read"):
+            converged = not bool(unknown.any())
+        if converged:
             break
 
     pos = torch.cumsum(selected.to(torch.int32), -1) - 1

@@ -43,6 +43,7 @@ from video_stab_tpu_torch.core.state import (
 )
 from video_stab_tpu_torch.models.deepstab import resolve_deepstab_weights
 from video_stab_tpu_torch.motion.hf import HFState
+from video_stab_tpu_torch.utils import telemetry
 
 # RANSAC draws for a tick given the (N,) valid-point counts, or None:
 # (N, K, 2) for the similarity model, (N, K, 4) for the homography model.
@@ -151,31 +152,37 @@ class MultiStreamStabilizer:
         tensor), the (N, H, W, 3) device tensor out, or None while no
         stream is ready. No device->host read of its own (the GFTT NMS flag
         and the homography model's ``eigh`` / ``matrix_exp`` aside)."""
-        frames = as_device_frames(frames, self.device)
-        self._ensure_state(frames)
-        if not self._frames_in.any():
-            self._state = batched_init_step_fn(self.params, self._state,
-                                               frames)
-            self._frames_in[:] = 1
-            return None
-        self._state, out, _ready, self.last_metrics = \
-            batched_step_metrics_fn(self.params, self._state, frames,
-                                    int(self._frames_in.max()),
-                                    ransac_draws=self.ransac_draws)
-        self._frames_in += 1
-        ready = (self._frames_in - self._emitted) >= \
-            self.params.effective_radius
-        self._emitted += ready
-        self.last_valid = ready
-        self.last_out_device = out
-        if not ready.any():
-            return None       # the whole batch is still warming up
-        return out
+        with telemetry.trace("vstab.upload"):
+            frames = as_device_frames(frames, self.device)
+        with telemetry.trace("vstab.step"):
+            self._ensure_state(frames)
+            if not self._frames_in.any():
+                self._state = batched_init_step_fn(self.params, self._state,
+                                                   frames)
+                self._frames_in[:] = 1
+                return None
+            self._state, out, _ready, self.last_metrics = \
+                batched_step_metrics_fn(self.params, self._state, frames,
+                                        int(self._frames_in.max()),
+                                        ransac_draws=self.ransac_draws)
+            self._frames_in += 1
+            ready = (self._frames_in - self._emitted) >= \
+                self.params.effective_radius
+            self._emitted += ready
+            self.last_valid = ready
+            self.last_out_device = out
+            if not ready.any():
+                return None       # the whole batch is still warming up
+            return out
 
     def stabilize_batch(self, frames) -> Optional[np.ndarray]:
         """``stabilize_batch_device`` with the output as numpy."""
-        out = self.stabilize_batch_device(frames)
-        return None if out is None else out.cpu().numpy()
+        with telemetry.trace("vstab.tick"):
+            out = self.stabilize_batch_device(frames)
+            if out is None:
+                return None
+            with telemetry.trace("vstab.download"):
+                return out.cpu().numpy()
 
     def flush_batch(self) -> Optional[np.ndarray]:
         """Drain one tick: the gate on the device releases only the streams
@@ -192,7 +199,8 @@ class MultiStreamStabilizer:
                                                      self._state)
         self._emitted += ready
         self.last_valid = ready
-        return out.cpu().numpy()
+        with telemetry.trace("vstab.download"):
+            return out.cpu().numpy()
 
     def reset_stream(self, i: int) -> None:
         """Recycle slot i for a new stream (camera reconnect or swap): its

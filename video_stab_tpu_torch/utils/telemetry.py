@@ -1,11 +1,19 @@
-"""Structured logging, counters and per-stage timing — port of
+"""Structured logging, counters, spans and per-stage timing — port of
 ``video_stab_tpu/utils/telemetry.py``.
 
-Named counters, per-stage millisecond histograms and an FPS meter, cheap
-enough for per-frame use, plus a ``trace`` context manager that labels a
-range in ``torch.profiler`` timelines. ``start_profiler_trace`` /
-``stop_profiler_trace`` record a ``torch.profiler`` trace of the card (and
-the host) into a directory, where the JAX package uses ``jax.profiler``.
+- ``Metrics``: the app's named counters, gauges and per-stage millisecond
+  histograms (``vstab-torch run``'s final snapshot).
+- ``trace(name)``: a span of the per-frame path, a
+  ``torch.profiler.record_function`` range while a profiler records on
+  this thread and a shared null context otherwise, so a span costs one
+  check when nothing traces. The spans land in the profiler's chrome
+  trace as ``user_annotation`` events, on the device records' clock.
+- ``count(name, n)`` / ``counters()``: the process's host-side counters
+  of the per-frame path (the GFTT NMS's host reads and rounds, the legacy
+  re-detect flag's reads), always on.
+- ``start_profiler_trace`` / ``stop_profiler_trace``: a ``torch.profiler``
+  trace of the card (and the host) into a directory, where the JAX
+  package uses ``jax.profiler``.
 """
 
 from __future__ import annotations
@@ -18,6 +26,8 @@ import threading
 import time
 from collections import defaultdict
 from typing import Dict, Optional
+
+import torch
 
 
 def get_logger(tag: str, enabled: bool = True,
@@ -68,33 +78,14 @@ class StageTimer:
         return out
 
 
-class FpsMeter:
-    """Sliding-window FPS (the reference prints every 30/300 frames)."""
-
-    def __init__(self, window: int = 120):
-        self.window = window
-        self._stamps: list = []
-
-    def tick(self) -> float:
-        now = time.perf_counter()
-        self._stamps.append(now)
-        if len(self._stamps) > self.window:
-            del self._stamps[:len(self._stamps) - self.window]
-        if len(self._stamps) < 2:
-            return 0.0
-        dt = self._stamps[-1] - self._stamps[0]
-        return (len(self._stamps) - 1) / dt if dt > 0 else 0.0
-
-
 class Metrics:
-    """Named counters + gauges: fps, dropped frames, feature count, RANSAC
+    """Named counters + gauges: dropped frames, feature count, RANSAC
     inlier ratio, correction magnitude."""
 
     def __init__(self):
         self.counters: Dict[str, int] = defaultdict(int)
         self.gauges: Dict[str, float] = {}
         self.timer = StageTimer()
-        self.fps = FpsMeter()
 
     def inc(self, name: str, n: int = 1):
         self.counters[name] += n
@@ -110,13 +101,31 @@ class Metrics:
         }
 
 
-@contextlib.contextmanager
+_NO_SPAN = contextlib.nullcontext()
+
+
 def trace(name: str):
-    """A labelled range in ``torch.profiler`` timelines (no cost to speak
-    of when no profiler runs)."""
-    import torch
-    with torch.profiler.record_function(name):
-        yield
+    """A span named ``name``: a ``torch.profiler.record_function`` range
+    while a profiler records on this thread, else a shared null context."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+_counter_lock = threading.Lock()
+_counters: Dict[str, int] = {}
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the process-wide counter ``name``."""
+    with _counter_lock:
+        _counters[name] = _counters.get(name, 0) + n
+
+
+def counters() -> Dict[str, int]:
+    """A copy of every counter since the process started."""
+    with _counter_lock:
+        return dict(_counters)
 
 
 # The trace that start_profiler_trace began, until stop_profiler_trace.
@@ -127,7 +136,6 @@ _active: Optional[tuple] = None
 def start_profiler_trace(logdir: str) -> None:
     """Begin recording a ``torch.profiler`` trace of the host and, where
     there is one, the card."""
-    import torch
     global _active
     with _trace_lock:
         if _active is not None:
