@@ -1311,3 +1311,225 @@ def test_app_runs_on_the_card(dev):
     assert sink.count >= 10
     after = (kenh.LAUNCHES, klk.LAUNCHES, kwarp.LAUNCHES)
     assert all(a > b for a, b in zip(after, before)), (before, after)
+
+
+# --- the wrapper layer's page-locked copies (utils/hostcopy.py) --------------
+
+PIN_COUNTERS = ("pinned_uploads", "pinned_downloads", "pinned_bytes",
+                "pageable_copies")
+
+
+def _pin_counts():
+    from video_stab_tpu_torch.utils import telemetry
+    c = telemetry.counters()
+    return {k: c.get(k, 0) for k in PIN_COUNTERS}
+
+
+def _pin_delta(before):
+    return {k: v - before[k] for k, v in _pin_counts().items()}
+
+
+@pytest.mark.parametrize("shape", [(1080, 1920, 3), (8, 1080, 1920, 3)])
+def test_pinned_download_is_cpu_numpy_bit_for_bit(dev, shape):
+    """``to_host`` of a 1080p frame and an 8 x 1080p batch: what
+    ``.cpu().numpy()`` gives, in a page-locked block of its own."""
+    from video_stab_tpu_torch.utils import hostcopy
+    t = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev)
+    before = _pin_counts()
+    got = hostcopy.to_host(t)
+    assert _pin_delta(before) == {"pinned_uploads": 0, "pinned_downloads": 1,
+                                  "pinned_bytes": t.numel(),
+                                  "pageable_copies": 0}
+    want = t.cpu().numpy()
+    assert got.dtype == np.uint8 and got.shape == shape
+    np.testing.assert_array_equal(got, want)
+    assert torch.from_numpy(got).is_pinned()
+    again = hostcopy.to_host(t)
+    assert not np.shares_memory(got, again)
+
+
+@pytest.mark.parametrize("case", ["frame", "batch", "strided view",
+                                  "channel-reversed view", "cpu tensor",
+                                  "float frame"])
+def test_pinned_upload_is_the_old_upload(dev, case):
+    """``to_device`` at 1080p: the old ``.to()``'s tensor bit for bit, one
+    pinned upload counted, and the caller's array overwritten as soon as
+    the call returns leaves the uploaded frame as it was."""
+    from video_stab_tpu_torch.utils import hostcopy
+    rng = np.random.default_rng(21)
+    big = rng.integers(0, 256, (8, 1080, 1920, 3), np.uint8)
+    x = {"frame": big[0].copy(), "batch": big,
+         "strided view": big[:4, ::2, ::2],
+         "channel-reversed view": big[1, :, :, ::-1],
+         "cpu tensor": torch.from_numpy(big[2].copy()),
+         "float frame": big[3].astype(np.float32)}[case]
+    want = (x.to(dev, dtype=torch.uint8) if isinstance(x, torch.Tensor) else
+            torch.from_numpy(np.ascontiguousarray(x, dtype=np.uint8)).to(dev))
+    before = _pin_counts()
+    got = hostcopy.to_device(x, dev)
+    assert _pin_delta(before) == {"pinned_uploads": 1, "pinned_downloads": 0,
+                                  "pinned_bytes": want.numel(),
+                                  "pageable_copies": 0}
+    if isinstance(x, torch.Tensor):
+        x.fill_(7)
+    else:
+        x[...] = 7
+    torch.cuda.synchronize()
+    assert got.device == want.device and got.dtype == torch.uint8
+    assert torch.equal(got, want)
+
+
+def test_unpinnable_copies_go_pageable_and_are_counted(dev, monkeypatch):
+    """Where no page-locked block can be had, both copies fall back to the
+    pageable ones, give the same values, and count ``pageable_copies``."""
+    from video_stab_tpu_torch.utils import hostcopy
+    empty = torch.empty
+
+    def no_pinning(*a, pin_memory=False, **kw):
+        if pin_memory:
+            raise RuntimeError("cudaHostAlloc: out of memory")
+        return empty(*a, **kw)
+    monkeypatch.setattr(torch, "empty", no_pinning)
+    frame = np.random.default_rng(3).integers(0, 256, (72, 128, 3), np.uint8)
+    before = _pin_counts()
+    up = hostcopy.to_device(frame, dev)
+    down = hostcopy.to_host(up)
+    assert _pin_delta(before) == {"pinned_uploads": 0, "pinned_downloads": 0,
+                                  "pinned_bytes": 0, "pageable_copies": 2}
+    np.testing.assert_array_equal(down, frame)
+
+
+def _warm_ms(dev, n=4):
+    from video_stab_tpu_torch.core.params import ModeParams, StabilizerParams
+    from video_stab_tpu_torch.parallel import MultiStreamStabilizer
+    ms = MultiStreamStabilizer(StabilizerParams(**SMALL_STREAM), n,
+                               mode=ModeParams())
+    clips = np.stack([_jittered(24, seed=3 + i) for i in range(n)], 1)
+    t = 0
+    while ms.stabilize_batch(clips[t]) is None:
+        t += 1
+    return ms, clips, t + 1
+
+
+def test_multistream_outputs_stay_their_own(dev):
+    """Consecutive ``stabilize_batch`` outputs are distinct arrays in
+    page-locked memory, and the first is unchanged after the next calls and
+    after ``torch.cuda.synchronize()``: the host allocator never recycles a
+    block that a live array holds."""
+    ms, clips, t = _warm_ms(dev)
+    first = ms.stabilize_batch(clips[t])
+    kept = first.copy()
+    second = ms.stabilize_batch(clips[t + 1])
+    assert second is not first and not np.shares_memory(first, second)
+    assert torch.from_numpy(first).is_pinned()
+    np.testing.assert_array_equal(first, kept)
+    del second
+    for i in range(t + 2, t + 6):
+        ms.stabilize_batch(clips[i])
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(first, kept)
+
+
+def test_process_input_may_be_overwritten_on_return(dev):
+    """The chain fed from one reused buffer, overwritten with junk as soon
+    as each ``process()`` returns, delivers what the chain fed fresh arrays
+    delivers, bit for bit (the same RANSAC draws on both)."""
+    from video_stab_tpu_torch.core.chain import ProcessingChain
+    from video_stab_tpu_torch.core.params import (EnhancerParams, ModeParams,
+                                                  RollCorrectionParams,
+                                                  StabilizerParams)
+    frames = _jittered(14)
+    draws = np.random.default_rng(9).random((len(frames), 32, 2))
+
+    def chain():
+        it = iter(range(len(frames)))
+
+        def inject(n_valid):
+            hi = max(int(n_valid), 1)
+            return torch.from_numpy(np.minimum(np.floor(draws[next(it)] * hi),
+                                               hi - 1).astype(np.int64))
+        return ProcessingChain(
+            ModeParams(enhancer_enabled=True, roll_correction_enabled=True,
+                       stabilizer_enabled=True),
+            EnhancerParams(brightness=5.0, contrast=1.1, gamma=0.9),
+            RollCorrectionParams(hough_threshold=30),
+            StabilizerParams(smoothing_radius=5, analysis_width=128,
+                             analysis_height=72, max_corners=32,
+                             ransac_hypotheses=32), ransac_draws=inject)
+    fresh, reused = chain(), chain()
+    want = [fresh.process(f.copy()) for f in frames]
+    buf = np.empty_like(frames[0])
+    got = []
+    for f in frames:
+        buf[...] = f
+        got.append(reused.process(buf))
+        buf[...] = 255 - f
+    delivered = [(a, b) for a, b in zip(got, want) if b is not None]
+    assert len(delivered) > 0
+    assert all(a is None for a, b in zip(got, want) if b is None)
+    for a, b in delivered:
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("wrapper", ["chain", "multistream", "stabilizer"])
+def test_steady_state_calls_count_one_pinned_copy_each_way(dev, wrapper):
+    """After warm-up every delivering call uploads once and downloads once
+    through pinned memory, its frames' bytes each way, and takes no
+    pageable copy."""
+    from video_stab_tpu_torch.core.chain import ProcessingChain
+    from video_stab_tpu_torch.core.params import (EnhancerParams, ModeParams,
+                                                  RollCorrectionParams,
+                                                  StabilizerParams)
+    from video_stab_tpu_torch.core.stabilizer import Stabilizer
+    if wrapper == "multistream":
+        ms, clips, t = _warm_ms(dev)
+        call, frames = ms.stabilize_batch, clips[t:t + 4]
+    else:
+        p = StabilizerParams(**SMALL_STREAM)
+        obj = Stabilizer(p, mode=ModeParams()) if wrapper == "stabilizer" \
+            else ProcessingChain(
+                ModeParams(enhancer_enabled=True, stabilizer_enabled=True),
+                EnhancerParams(contrast=1.1), RollCorrectionParams(), p)
+        call = obj.stabilize if wrapper == "stabilizer" else obj.process
+        clip = _jittered(16)
+        t = 0
+        while call(clip[t]) is None:
+            t += 1
+        frames = clip[t + 1:t + 5]
+    before = _pin_counts()
+    outs = [call(f) for f in frames]
+    assert all(o is not None for o in outs)
+    n = len(frames)
+    assert _pin_delta(before) == {
+        "pinned_uploads": n, "pinned_downloads": n,
+        "pinned_bytes": sum(f.nbytes + o.nbytes for f, o in zip(frames, outs)),
+        "pageable_copies": 0}
+
+
+def test_multistream_tick_syncs_only_to_download(dev):
+    """Under torch's sync debug mode a steady-state tick synchronizes once
+    to download (attributed to ``utils/hostcopy.py``) and once per GFTT NMS
+    read, and not to upload: one fewer than the pageable upload's tick."""
+    import warnings
+
+    from video_stab_tpu_torch.utils import telemetry
+    ms, clips, t = _warm_ms(dev)
+    ticks = clips[t:t + 4]        # two re-detect ticks among them
+    torch.cuda.synchronize()
+    nms0 = telemetry.counters().get("nms_reads", 0)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for f in ticks:
+                assert ms.stabilize_batch(f) is not None
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    nms = telemetry.counters().get("nms_reads", 0) - nms0
+    syncs = [w for w in caught if "synchroniz" in str(w.message)
+             and "video_stab_tpu_torch" in w.filename]
+    at_copy = [w for w in syncs if w.filename.endswith("utils/hostcopy.py")]
+    assert nms > 0
+    assert len(at_copy) == len(ticks)
+    assert len(syncs) == len(ticks) + nms, [
+        (w.filename, w.lineno) for w in syncs]

@@ -73,7 +73,7 @@ from video_stab_tpu_torch.ops.warp import (
     rotation_matrix_2d,
     warp_affine_fast,
 )
-from video_stab_tpu_torch.utils import telemetry
+from video_stab_tpu_torch.utils import hostcopy, telemetry
 
 
 class ChainParams(NamedTuple):
@@ -326,7 +326,7 @@ class _InFlight(NamedTuple):
     def numpy(self) -> np.ndarray:
         with telemetry.trace("vstab.download"):
             if self.host is None:
-                return self.out.cpu().numpy()
+                return hostcopy.to_host(self.out)
             self.copied.synchronize()
             return self.host.numpy()
 
@@ -455,7 +455,7 @@ class ProcessingChain:
                 return None
             if not self.pipelined:
                 with telemetry.trace("vstab.download"):
-                    return out.cpu().numpy()
+                    return hostcopy.to_host(out)
             prev, self._pending = self._pending, self._start_copy(out)
             return None if prev is None else prev.numpy()
 
@@ -476,7 +476,7 @@ class ProcessingChain:
         self._state, out = chain_flush_step_fn(p, self._state)
         self._emitted += 1
         with telemetry.trace("vstab.download"):
-            return out.cpu().numpy()
+            return hostcopy.to_host(out)
 
     def clean(self) -> None:
         self._state = None

@@ -98,7 +98,7 @@ from video_stab_tpu_torch.ops.warp import (
     similarity_matrix,
     warp_perspective_fast,
 )
-from video_stab_tpu_torch.utils import telemetry
+from video_stab_tpu_torch.utils import hostcopy, telemetry
 
 WARP_MAX_SHIFT = 128    # translation envelope (px) of the JAX emit warp
 # Projective allowance |g|, |h| of the JAX projective warp's static envelope
@@ -851,12 +851,9 @@ def batched_step_metrics_fn(params: StabilizerParams, state: StabilizerState,
 
 def as_device_frame(frame, device: torch.device) -> torch.Tensor:
     """An (H, W, 3) uint8 frame (numpy or tensor; gray is repeated to 3
-    channels) as a contiguous tensor on ``device``."""
-    if isinstance(frame, torch.Tensor):
-        t = frame.to(device=device, dtype=torch.uint8)
-    else:
-        t = torch.from_numpy(np.ascontiguousarray(frame, dtype=np.uint8))
-        t = t.to(device)
+    channels) as a contiguous tensor on ``device``, uploaded by
+    ``hostcopy.to_device``."""
+    t = hostcopy.to_device(frame, device)
     if t.dim() == 2:
         t = t[:, :, None].expand(-1, -1, 3)
     return t.contiguous()
@@ -943,7 +940,7 @@ class Stabilizer:
             if out is None:
                 return None
             with telemetry.trace("vstab.download"):
-                return out.cpu().numpy()
+                return hostcopy.to_host(out)
 
     def flush(self) -> Optional[np.ndarray]:
         """Drain one remaining queued frame."""
@@ -952,7 +949,7 @@ class Stabilizer:
         self._state, out = stabilizer_emit_step_fn(self.params, self._state)
         self._emitted += 1
         with telemetry.trace("vstab.download"):
-            return out.cpu().numpy()
+            return hostcopy.to_host(out)
 
     def clean(self) -> None:
         """Reset all streaming state."""

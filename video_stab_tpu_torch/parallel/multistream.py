@@ -43,7 +43,7 @@ from video_stab_tpu_torch.core.state import (
 )
 from video_stab_tpu_torch.models.deepstab import resolve_deepstab_weights
 from video_stab_tpu_torch.motion.hf import HFState
-from video_stab_tpu_torch.utils import telemetry
+from video_stab_tpu_torch.utils import hostcopy, telemetry
 
 # RANSAC draws for a tick given the (N,) valid-point counts, or None:
 # (N, K, 2) for the similarity model, (N, K, 4) for the homography model.
@@ -88,12 +88,8 @@ def batched_state_init(params: StabilizerParams, n_streams: int,
 
 def as_device_frames(frames, device: torch.device) -> torch.Tensor:
     """(N, H, W, 3) uint8 frames (numpy or a tensor) as a contiguous tensor
-    on ``device``."""
-    if isinstance(frames, torch.Tensor):
-        t = frames.to(device=device, dtype=torch.uint8)
-    else:
-        t = torch.from_numpy(np.ascontiguousarray(frames, dtype=np.uint8))
-        t = t.to(device)
+    on ``device``, uploaded by ``hostcopy.to_device``."""
+    t = hostcopy.to_device(frames, device)
     if t.dim() != 4 or t.shape[-1] != 3:
         raise ValueError(f"expected (N, H, W, 3) frames, got "
                          f"{tuple(t.shape)}")
@@ -182,7 +178,7 @@ class MultiStreamStabilizer:
             if out is None:
                 return None
             with telemetry.trace("vstab.download"):
-                return out.cpu().numpy()
+                return hostcopy.to_host(out)
 
     def flush_batch(self) -> Optional[np.ndarray]:
         """Drain one tick: the gate on the device releases only the streams
@@ -200,7 +196,7 @@ class MultiStreamStabilizer:
         self._emitted += ready
         self.last_valid = ready
         with telemetry.trace("vstab.download"):
-            return out.cpu().numpy()
+            return hostcopy.to_host(out)
 
     def reset_stream(self, i: int) -> None:
         """Recycle slot i for a new stream (camera reconnect or swap): its
