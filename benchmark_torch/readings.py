@@ -30,19 +30,24 @@ def launches_per_frame(ctx):
 def kernel_roofline_share(ctx):
     """Sum over the hand-written kernels of the least time their recorded
     launches need at the cell's shapes (``work/``, ``peaks.least_us``),
-    over the sum of their recorded device time, in %."""
+    over the sum of their recorded device time, in %. Work files that name
+    one symbol (a kernel with two modes) each list their own launches; the
+    symbol's recorded launches and time are taken once, against the mean
+    least time of all the launches they list."""
     from benchmark_torch.harness import load_module
     if ctx.trace is None:
         return None
-    least, spent = 0.0, 0.0
+    shapes = {}
     for path in sorted(WORK.glob("*.py")):
         mod = load_module(path)
-        shapes = mod.launches(ctx.cfg)
-        if not shapes:
+        shapes.setdefault(mod.SYMBOL, []).extend(mod.launches(ctx.cfg))
+    least, spent = 0.0, 0.0
+    for symbol, listed in shapes.items():
+        if not listed:
             continue
-        n, us = ctx.trace.kernel_time(mod.SYMBOL)
-        per_launch = sum(peaks.least_us(b, o) for b, o in shapes) \
-            / len(shapes)
+        n, us = ctx.trace.kernel_time(symbol)
+        per_launch = sum(peaks.least_us(b, o) for b, o in listed) \
+            / len(listed)
         least += n * per_launch
         spent += us
     if spent <= 0.0:

@@ -8,7 +8,10 @@ of standard output is the result as one JSON object; the numbers compared
 with the plain reference, each beside its limit, are the last lines of
 standard error and the result's last key, ``checks``. Without a CUDA
 device, or with fewer than the cell asks for, it prints why on standard
-error and exits 2 with no result: there is no CPU fallback.
+error and exits 2 with no result: there is no CPU fallback. Where the
+process holds JAX or the JAX package once the window has closed, it names
+them on standard error and exits 3 with no result: the port runs without
+them.
 """
 
 from __future__ import annotations
@@ -18,6 +21,17 @@ import json
 import os
 import sys
 from pathlib import Path
+
+
+# Top-level module names the measured process may not hold, compared whole
+# (``video_stab_tpu_torch`` is the port, ``video_stab_tpu`` the JAX package).
+FORBIDDEN = ("jax", "jaxlib", "flax", "video_stab_tpu")
+
+
+def forbidden_modules() -> list:
+    """The FORBIDDEN top-level names that ``sys.modules`` holds."""
+    return sorted({name.split(".")[0] for name in list(sys.modules)}
+                  & set(FORBIDDEN))
 
 
 def parse(argv):
@@ -54,6 +68,11 @@ def main(argv=None) -> int:
     result = harness.run(manifest, root, args.workload, args.seed,
                          args.seconds, bool(args.trace),
                          torch.device("cuda", 0))
+    loaded = forbidden_modules()
+    if loaded:
+        print(f"the run loaded {loaded}, which the port does not use: no "
+              f"result", file=sys.stderr)
+        return 3
     sys.stdout.flush()
     print(f"frames compared: {result.pop('frames_compared')} at calls "
           f"{result.pop('sampled_calls')} of {result.pop('calls_made')}",

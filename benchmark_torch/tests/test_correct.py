@@ -2,8 +2,9 @@
 program as it is passes; the control (the reference computed in bfloat16
 in the program's place) fails; and so does a run whose timed path is
 broken underneath in each way the cell can break: a step that returns its
-state unchanged, an answer altered where it is produced, and, with
-several cameras, half of the batch left out.
+state unchanged, an answer altered where it is produced, with the
+homography model its perspective terms dropped in the estimate or in the
+emit, and, with several cameras, half of the batch left out.
 
     python -m pytest benchmark_torch/tests -q
 """
@@ -12,7 +13,7 @@ import pytest
 import torch
 
 from benchmark_torch import control, harness
-from benchmark_torch.tests.test_harness import ROOT, small_manifest
+from benchmark_torch.tests.test_harness import MANIFEST, ROOT, small_manifest
 
 SEED = 2 ** 31 + 11
 CPU = torch.device("cpu")
@@ -23,8 +24,7 @@ def run(cell, seconds=1.0):
                        CPU)
 
 
-@pytest.mark.parametrize("cell", ["chain_1080p.saturated",
-                                  "multicam_8x1080p.saturated"])
+@pytest.mark.parametrize("cell", [w["name"] for w in MANIFEST["workloads"]])
 def test_program_passes_and_control_fails(cell):
     res = run(cell)
     assert res["correct"], res["checks"]
@@ -52,6 +52,53 @@ def _answer_altered(monkeypatch):
     def warp(img, m, *a, **kw):
         return torch.roll(real(img, m, *a, **kw), 1, dims=1)
     monkeypatch.setattr(stabilizer, "warp_affine_u8", warp)
+
+
+def _emit_warp_altered(monkeypatch):
+    """The homography emit's projective warp (K2) off by a pixel."""
+    from video_stab_tpu_torch.core import stabilizer
+    real = stabilizer.warp_perspective_fast
+
+    def warp(img, h, *a, **kw):
+        return torch.roll(real(img, h, *a, **kw), 1, dims=1)
+    monkeypatch.setattr(stabilizer, "warp_perspective_fast", warp)
+
+
+def _roll_rotation_altered(monkeypatch):
+    """The two-pass roll's whole-frame rotation (K1) off by a pixel."""
+    from video_stab_tpu_torch.core import chain
+    real = chain.warp_affine_u8
+
+    def warp(img, m, *a, **kw):
+        return torch.roll(real(img, m, *a, **kw), 1, dims=1)
+    monkeypatch.setattr(chain, "warp_affine_u8", warp)
+
+
+def _perspective_dropped(monkeypatch):
+    """K2 warps with the correction's perspective row zeroed: an affine
+    emit where the model is projective."""
+    from video_stab_tpu_torch.core import stabilizer
+    real = stabilizer.warp_perspective_fast
+
+    def warp(img, h, *a, **kw):
+        h = h.clone()
+        h[..., 2, :2] = 0.0
+        return real(img, h, *a, **kw)
+    monkeypatch.setattr(stabilizer, "warp_perspective_fast", warp)
+
+
+def _estimate_affine(monkeypatch):
+    """The 8-DOF estimate cut to its affine part: the perspective entries
+    of each frame's H zeroed before the log."""
+    from video_stab_tpu_torch.core import stabilizer
+    real = stabilizer.estimate_homography_ransac
+
+    def estimate(*a, **kw):
+        h, ok, inliers = real(*a, **kw)
+        h = h.clone()
+        h[..., 2, :2] = 0.0
+        return h, ok, inliers
+    monkeypatch.setattr(stabilizer, "estimate_homography_ransac", estimate)
 
 
 def _batch_state_unchanged(monkeypatch):
@@ -88,6 +135,11 @@ def _half_batch_left_out(monkeypatch):
 @pytest.mark.parametrize("cell,fault", [
     ("chain_1080p.saturated", _state_unchanged),
     ("chain_1080p.saturated", _answer_altered),
+    ("chain_homography_1080p.saturated", _state_unchanged),
+    ("chain_homography_1080p.saturated", _emit_warp_altered),
+    ("chain_homography_1080p.saturated", _roll_rotation_altered),
+    ("chain_homography_1080p.saturated", _perspective_dropped),
+    ("chain_homography_1080p.saturated", _estimate_affine),
     ("multicam_8x1080p.saturated", _batch_state_unchanged),
     ("multicam_8x1080p.saturated", _batch_answer_altered),
     ("multicam_8x1080p.saturated", _half_batch_left_out),

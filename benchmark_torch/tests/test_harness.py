@@ -11,6 +11,7 @@ import json
 import shutil
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -21,15 +22,21 @@ from benchmark_torch.harness import HERE, Window, drive, load_module
 
 ROOT = HERE.parent
 MANIFEST = json.loads((ROOT / "BENCHMARK.json").read_text())
-SMALL = {"chain_1080p": "benchmark_torch/tests/chain_small.json",
-         "multicam_8x1080p": "benchmark_torch/tests/multicam_small.json"}
+SMALL_DIR = HERE / "tests"
+# The keys a configuration's small copy may change: its sizes.
+SIZES = {"source", "assumed", "height", "width", "streams", "pool_frames"}
+STAGE_SIZES = {"stabilizer": {"smoothing_radius", "max_corners",
+                              "analysis_width", "analysis_height",
+                              "ransac_hypotheses"}}
 
 
-def small_manifest() -> dict:
-    """The manifest with each configuration at a size the CPU holds."""
-    m = json.loads(json.dumps(MANIFEST))
+def small_manifest(manifest: dict = MANIFEST,
+                   small_dir: Path = SMALL_DIR) -> dict:
+    """The manifest with each configuration at a size the CPU holds: its
+    copy ``<small_dir>/<config>_small.json``."""
+    m = json.loads(json.dumps(manifest))
     for c in m["configs"]:
-        c["file"] = SMALL[c["name"]]
+        c["file"] = str(small_dir / f"{c['name']}_small.json")
     return m
 
 
@@ -67,6 +74,27 @@ def test_config_files_are_the_manifests():
         assert (HERE / "reference" / f"{cfg['reference']}.py").is_file()
 
 
+@pytest.mark.parametrize("config", [c["name"] for c in MANIFEST["configs"]])
+def test_every_config_has_a_small_copy_that_differs_only_in_size(config):
+    """A configuration's CPU-size copy runs the same system against the
+    same reference and limits, with the same stages and settings; only
+    its sizes are cut."""
+    entry = {c["name"]: c for c in MANIFEST["configs"]}[config]
+    full = json.loads((ROOT / entry["file"]).read_text())
+    small_file = SMALL_DIR / f"{config}_small.json"
+    assert small_file.is_file(), f"{config} has no {small_file.name}"
+    small = json.loads(small_file.read_text())
+    assert set(small) == set(full)
+    for key in set(full) - SIZES:
+        if not isinstance(full[key], dict) or key == "correct_limits":
+            assert small[key] == full[key], key
+            continue
+        assert set(small[key]) == set(full[key]), key
+        for k in set(full[key]) - STAGE_SIZES.get(key, set()):
+            assert small[key][k] == full[key][k], (key, k)
+    harness.load_reference(small).check(small)
+
+
 @pytest.mark.parametrize("change", [
     ("stabilizer", "motion_model", "homography"),
     ("stabilizer", "redetect_interval", 3),
@@ -89,6 +117,32 @@ def test_stream_reference_refuses_what_it_does_not_model(change):
     pool = torch.zeros((2, 1, 8, 8, 3), dtype=torch.uint8)
     with pytest.raises(ValueError):
         reference.outputs(cfg, pool, 40, 5, [20])
+
+
+@pytest.mark.parametrize("change", [
+    ("stabilizer", "motion_model", "similarity"),
+    ("stabilizer", "redetect_interval", 3),
+    ("stabilizer", "smoothing_method", "gaussian"),
+    ("roll", "canny_aperture", 5),
+    ("enhancer", "enable_unsharp", True),
+    (None, "streams", 2),
+    (None, "system", "multistream"),
+    (None, "roll", None),
+], ids=lambda c: f"{c[1]}={c[2]}")
+def test_homography_reference_refuses_what_it_does_not_model(change):
+    """The homography reference models the one-camera chain with its
+    enhancer and two-pass roll, re-detecting every 2nd frame."""
+    cfg = json.loads((HERE / "configs" /
+                      "chain_homography_1080p.json").read_text())
+    reference = harness.load_reference(cfg)
+    reference.check(cfg)
+    group, key, value = change
+    if value is None:
+        del cfg[key]
+    else:
+        (cfg if group is None else cfg[group])[key] = value
+    with pytest.raises(ValueError):
+        reference.check(cfg)
 
 
 class FakeClock:
@@ -185,6 +239,79 @@ def test_work_matches_hand_counts_at_1080p():
                                                                  abs=5e-4)
 
 
+def test_homography_work_lists_the_roll_rotation_beside_the_emit():
+    """With the homography model the chain's ``warp_tile_kernel`` launches
+    are K2's emit (42 ops a pixel, ``warp_homography_u8``) and the two-pass
+    roll's whole-frame K1 rotation (37, ``warp_affine_u8``), 12,441,600
+    bytes each at 1080p; the similarity cells list no K2 launch."""
+    def work(kernel, name):
+        cfg = json.loads((HERE / "configs" / f"{name}.json").read_text())
+        return load_module(HERE / "work" / f"{kernel}.py").launches(cfg)
+
+    assert work("warp_homography_u8", "chain_homography_1080p") == [
+        (12_441_600, 2_073_600 * 42)]
+    assert work("warp_affine_u8", "chain_homography_1080p") == [
+        (12_441_600, 2_073_600 * 37)]
+    assert work("warp_homography_u8", "chain_1080p") == []
+    assert work("warp_homography_u8", "multicam_8x1080p") == []
+
+
+def test_roofline_takes_a_shared_symbols_launches_once():
+    """K1 and K2 are one symbol: its recorded launches and time count
+    once, against the mean least time of what both work files list."""
+    from benchmark_torch import readings
+
+    class Trace:
+        asked = []
+
+        def kernel_time(self, symbol):
+            self.asked.append(symbol)
+            return (4, 100.0) if symbol == "warp_tile_kernel" else (0, 0.0)
+
+    cfg = json.loads((HERE / "configs" /
+                      "chain_homography_1080p.json").read_text())
+    ctx = type("Ctx", (), {"trace": Trace(), "cfg": cfg})()
+    got = readings.kernel_roofline_share(ctx)
+    least = (peaks.least_us(12_441_600, 2_073_600 * 42)
+             + peaks.least_us(12_441_600, 2_073_600 * 37)) / 2
+    assert got == pytest.approx(100.0 * 4 * least / 100.0)
+    assert Trace.asked.count("warp_tile_kernel") == 1
+
+
+def test_no_file_of_the_benchmark_imports_jax():
+    """The harness, its references and its tests run without JAX and the
+    JAX package: no ``import`` of theirs names one, by whole top-level
+    name (the port's ``video_stab_tpu_torch`` begins with the JAX
+    package's name)."""
+    import ast
+    from benchmark_torch import run
+    found = []
+    for path in sorted(HERE.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            found += [(path.name, n) for n in names
+                      if n.split(".")[0] in run.FORBIDDEN]
+    assert found == []
+
+
+def test_forbidden_modules_compares_whole_top_level_names(monkeypatch):
+    from benchmark_torch import run
+    for name in list(sys.modules):
+        if name.split(".")[0] in run.FORBIDDEN:
+            monkeypatch.delitem(sys.modules, name)
+    assert run.forbidden_modules() == []
+    monkeypatch.setitem(sys.modules, "video_stab_tpu_torch_x", object())
+    assert run.forbidden_modules() == []
+    monkeypatch.setitem(sys.modules, "jax.numpy", object())
+    monkeypatch.setitem(sys.modules, "video_stab_tpu.core", object())
+    assert run.forbidden_modules() == ["jax", "video_stab_tpu"]
+
+
 def test_run_without_a_card_exits_nonzero(tmp_path):
     """In a directory that holds only BENCHMARK.json and the benchmark's
     files, and with no CUDA device: no result, a nonzero exit."""
@@ -231,28 +358,40 @@ def outputs(cfg, pool, n_calls, seed, calls, precision=None):
 def test_a_new_config_mix_and_metric_need_only_new_files(tmp_path):
     """Throwaway configurations, a traffic mix, a system, a reference and
     a per-layer metric, added as files and manifest entries, run through
-    the unchanged harness: one configuration of the chain, and one of a
-    new system held to a new reference, which decides ``correct``."""
+    the unchanged harness: one configuration of the chain, which enters
+    the CPU tests through ``small_manifest`` by its small copy's name
+    beside the manifest's own, and one of a new system held to a new
+    reference, which decides ``correct``."""
     bench = tmp_path / "bench"
     for d in ("traffic", "systems", "metrics", "end_to_end", "reference"):
         shutil.copytree(HERE / d, bench / d,
                         ignore=shutil.ignore_patterns("__pycache__"))
     (bench / "systems" / "lag.py").write_text(LAG_SYSTEM)
     (bench / "reference" / "lag.py").write_text(LAG_REFERENCE)
-    cfg = json.loads((HERE / "tests" / "chain_small.json").read_text())
-    cfg["stabilizer"]["max_corners"] = 48
-    (tmp_path / "throwaway.json").write_text(json.dumps(cfg))
+    small_dir = tmp_path / "tests"
+    shutil.copytree(SMALL_DIR, small_dir,
+                    ignore=shutil.ignore_patterns("*.py", "__pycache__"))
+    for src, dst in ((HERE / "configs" / "chain_1080p.json",
+                      tmp_path / "throwaway.json"),
+                     (SMALL_DIR / "chain_1080p_small.json",
+                      small_dir / "throwaway_small.json")):
+        cfg = json.loads(src.read_text())
+        cfg["stabilizer"]["max_corners"] = 48
+        dst.write_text(json.dumps(cfg))
     (bench / "traffic" / "cam15.json").write_text(json.dumps(
         {"loop": "open", "rate_per_s": 15, "sample_every": 4,
          "traced_calls": 4}))
     (bench / "metrics" / "calls_traced.py").write_text(
         "def read(ctx):\n    return float(ctx.tracer.active)\n")
-    m = small_manifest()
+    m = json.loads(json.dumps(MANIFEST))
     m["configs"].append({"name": "throwaway", "source": "a test",
                          "file": str(tmp_path / "throwaway.json"),
                          "reduced": [], "why": "a test"})
     m["workloads"].append({"name": "throwaway.cam15", "config": "throwaway",
                            "traffic": "cam15", "chips": 1, "why": "a test"})
+    m = small_manifest(m, small_dir)
+    assert len(m["configs"]) == len(MANIFEST["configs"]) + 1
+    assert m["configs"][-1]["file"] == str(small_dir / "throwaway_small.json")
     m["per_layer"].append({"name": "calls_traced", "unit": "calls",
                            "better": "higher", "source": "program_counter",
                            "layer": "test", "moves": "setup_s",
