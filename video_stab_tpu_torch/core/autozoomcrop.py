@@ -11,8 +11,9 @@ the JAX package. Here it runs in chunks of ``RECT_CHUNK`` masked iterations
 on the device: an iteration moves the rectangle only while the loop's
 condition holds, and a finished rectangle stays put, so any number of
 extra iterations leaves the JAX result. After each chunk the host reads
-one "still shrinking" flag (``RECT_READS`` counts those reads); a loop
-that never reads back is later work.
+one "still shrinking" flag (``RECT_READS`` and the telemetry counter
+``azc_rect_reads`` count those reads, each inside a ``vstab.azc_read``
+span); a loop that never reads back is later work.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from video_stab_tpu_torch.core.params import AutoZoomCropParams
 from video_stab_tpu_torch.ops.color import bgr_to_gray, saturate_u8
 from video_stab_tpu_torch.ops.filters import morph_close, threshold_binary
 from video_stab_tpu_torch.ops.resize import resample_axis_aligned
+from video_stab_tpu_torch.utils import telemetry
 
 RECT_CHUNK = 32   # masked shrink iterations between two host reads
 RECT_READS = 0    # host reads interior_rect has made since import
@@ -106,7 +108,10 @@ def interior_rect(mask: torch.Tensor, max_iters: Optional[int] = None,
             rect, _go = _shrink(cum, rect, h, w)
         done += RECT_CHUNK
         RECT_READS += 1
-        if not bool(_shrink(cum, rect, h, w)[1]):
+        telemetry.count("azc_rect_reads")
+        with telemetry.trace("vstab.azc_read"):
+            shrinking = bool(_shrink(cum, rect, h, w)[1])
+        if not shrinking:
             break
     return rect
 

@@ -177,8 +177,9 @@ def _pre_stages(params: ChainParams, state: ChainState,
         rot = rotation_matrix_2d(w / 2.0, h / 2.0, roll_state.smoothed_angle)
         f_u8 = warp_affine_u8(f_u8, rot, border_mode=BORDER_REPLICATE)
         if params.azc.enabled:
-            f_u8 = saturate_u8(auto_zoom_crop_f32(
-                params.azc, f_u8.float(), keep_input_size=True))
+            with telemetry.trace("vstab.azc"):
+                f_u8 = saturate_u8(auto_zoom_crop_f32(
+                    params.azc, f_u8.float(), keep_input_size=True))
     return roll_state, f_u8
 
 
@@ -221,7 +222,8 @@ def _deliver(params: ChainParams, out_u8: torch.Tensor) -> torch.Tensor:
     """The delivered format: planar I420 on the device for
     ``output_format="i420"``, else the BGR frame."""
     if params.output_format == "i420":
-        return bgr_to_i420(out_u8)
+        with telemetry.trace("vstab.i420"):
+            return bgr_to_i420(out_u8)
     return out_u8
 
 
