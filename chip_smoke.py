@@ -7,7 +7,7 @@ Phases (any failure is an uncaught exception and a nonzero exit):
 
 1. Environment: torch and CUDA versions, the card's name and power limit.
    Without a CUDA device the script exits 1 before printing any result.
-2. Build: the hand-written kernels (video_stab_tpu_torch/csrc/, five
+2. Build: the hand-written kernels (video_stab_tpu_torch/csrc/, six
    sources, one nvcc each, started together) are compiled from the
    checkout's sources into build/torch_kernels/, and beside them, started
    at the same time, the empty kernel of csrc/launch_floor.cu, which only
@@ -65,7 +65,11 @@ Phases (any failure is an uncaught exception and a nonzero exit):
    of the same kernel (bit for bit; K6: identical status, positions, err
    and steps, each stream at the plain tolerance), with its device time at
    N = 8 beside one stream's and its bound at N = 8 (``multistream`` in
-   their rows).
+   their rows). K7 (auto zoom-crop's shrink loop) at 1080x1920 on a mask
+   with no holes and on the frame rotated by 20 and 60 deg: bit for bit
+   against its plain version (the chunked loop, on the card), the moves
+   each runs, its time from a prefix table warm in L2 (as the cumsums
+   leave it on the path) and ``latency_floor_us``, one L2 read a move.
 4. The paths, each with the kernels' launch counters zeroed just before it
    and read just after (each kernel of the path must be > 0):
    a. ``ProcessingChain`` with exactly the ``__graft_entry__.entry()``
@@ -92,7 +96,8 @@ Phases (any failure is an uncaught exception and a nonzero exit):
       wide-band run (+-70 deg roll, auto zoom-crop, the full enhancer,
       I420, pipelined) and the homography chain with roll, 56 frames each
       at 1080p: ms/frame over 16 steady-state frames, the host reads of 8
-      more attributed to the GFTT NMS and ``interior_rect``, and K6's
+      more attributed to the GFTT NMS and ``interior_rect`` (none on the
+      card since K7), and K6's
       ``steps=`` on those frames with the motion prior and without it (the
       ``{"configs": ...}`` line);
    f. the stabilizer's variants at 1080p, 56 frames each: the streaming
@@ -568,7 +573,91 @@ def check_kernels(torch, dev, launch_floor) -> dict:
     results.update(check_enhance_modes(torch, frame, cold, ep))
     results.update(check_new_kernels(torch, dev, frame, cold, launch_floor))
     results.update(check_lk(torch, dev))
+    results.update(check_interior_rect(torch, dev))
     return results
+
+
+def azc_masks_1080p() -> dict:
+    """K7's content masks at 1080x1920: one with no holes (what the
+    restream cell's pool gives), and the frame rotated by 20 and 60 deg
+    about its centre (a pixel is content where its centre maps back inside
+    the frame)."""
+    h, w = 1080, 1920
+    yy, xx = np.mgrid[:h, :w].astype(np.float64)
+    dx, dy = xx - (w - 1) / 2.0, yy - (h - 1) / 2.0
+    out = {"no holes": np.full((h, w), 255.0, np.float32)}
+    for deg in (20.0, 60.0):
+        a = np.radians(deg)
+        sx = np.cos(a) * dx + np.sin(a) * dy + (w - 1) / 2.0
+        sy = -np.sin(a) * dx + np.cos(a) * dy + (h - 1) / 2.0
+        inside = (sx >= 0) & (sx <= w - 1) & (sy >= 0) & (sy <= h - 1)
+        out[f"rotated {deg:g} deg"] = np.where(inside, 255.0, 0.0).astype(
+            np.float32)
+    return out
+
+
+def check_interior_rect(torch, dev) -> dict:
+    """Phase 3, K7: the shrink loop on the card against its plain version
+    (the chunked loop, run on the card) bit for bit, on the masks of
+    ``azc_masks_1080p``, with the moves each runs (the fewest max_iters
+    whose rect is the whole loop's); timed from the prefix table built
+    once, which stays in L2 as on the path, where the cumsums have just
+    written it. The plain version's times over 2 calls (thousands of
+    launches each). The row's headline numbers are the no-holes mask's."""
+    from video_stab_tpu_torch.core import autozoomcrop as tazc
+    from video_stab_tpu_torch.kernels import azc as kazc
+
+    cases = {}
+    for name, m in azc_masks_1080p().items():
+        h, w = m.shape
+        md = torch.from_numpy(m).to(dev)
+        cum = tazc._prefix_table(md > 0)
+
+        def k7(i, cum=cum, h=h, w=w):
+            return kazc.interior_rect_cuda(cum, h, w, h + w)
+
+        def plain(i, md=md):
+            return tazc.interior_rect_plain(md)
+
+        got, want = k7(0), plain(0)
+        assert torch.equal(got, want), (name, got, want)
+        lo, hi = 0, h + w          # the fewest moves that give the rect
+        while lo < hi:
+            mid = (lo + hi) // 2
+            if torch.equal(kazc.interior_rect_cuda(cum, h, w, mid), got):
+                hi = mid
+            else:
+                lo = mid + 1
+        moves = lo
+        assert torch.equal(tazc.interior_rect_plain(md, moves), got), name
+        t = dict(device_us=device_us(torch, k7, ["interior_rect_kernel"]),
+                 call_ms=call_ms(torch, k7),
+                 plain_device_us=device_us(torch, plain, None, n=2),
+                 plain_call_ms=call_ms(torch, plain, n=2), moves=moves,
+                 rect=got.tolist())
+        # Bytes: the hole totals of every row and column, eight entries a
+        # move and one more round where the loop stops, the rect.
+        t["bound_us"], t["bound_by"] = bound_us(
+            4 * (h + w + 8 * (moves + 1) + 4), 0)
+        t["bound_share"] = t["bound_us"] / t["device_us"]
+        # One dependent L2 read a round: the starting rect's and each
+        # iteration's (moves + 1 of them).
+        t["latency_floor_us"] = ((moves + 2) * LK_CYCLES["l2"]
+                                 / BOOST_CLOCK_HZ * 1e6)
+        t["floor_share"] = t["latency_floor_us"] / t["device_us"]
+        t["us_per_move"] = t["device_us"] / max(moves, 1)
+        print(f"K7 interior_rect 1080x1920 {name}: rect {t['rect']} after "
+              f"{moves} moves, kernel = plain; device {t['device_us']:.3f} "
+              f"us ({t['us_per_move']:.3f} us a move), plain "
+              f"{t['plain_device_us']:.3f} us; wrapper call "
+              f"{t['call_ms']:.4f} ms, plain {t['plain_call_ms']:.4f} ms; "
+              f"latency floor {t['latency_floor_us']:.3f} us "
+              f"(floor_share {t['floor_share']:.3f}); bound "
+              f"{t['bound_us']:.4f} us ({t['bound_by']})")
+        cases[name] = t
+    row = dict(cases["no holes"], cases=cases, max_abs_err=0.0,
+               library="none: no PyTorch call runs the shrink loop")
+    return {"interior_rect": row}
 
 
 # K4's head mode: the table's stages per value (the table is built per
@@ -1317,6 +1406,7 @@ def run_slice(torch, dev, pool) -> dict:
 
 
 def kernel_modules():
+    from video_stab_tpu_torch.kernels import azc as kazc
     from video_stab_tpu_torch.kernels import enhance as kenh
     from video_stab_tpu_torch.kernels import features as kfeat
     from video_stab_tpu_torch.kernels import lk as klk
@@ -1330,7 +1420,8 @@ def kernel_modules():
             "enhance_tail": (kenh, "TAIL_LAUNCHES"),
             "box_filter_convolve": (ktraj, "CONVOLVE_LAUNCHES"),
             "box_filter_centered": (ktraj, "CENTERED_LAUNCHES"),
-            "lk_track": (klk, "LAUNCHES")}
+            "lk_track": (klk, "LAUNCHES"),
+            "interior_rect": (kazc, "RECT_KERNEL_LAUNCHES")}
 
 
 def zero_counts() -> None:
@@ -1656,7 +1747,7 @@ CONFIG_KERNELS = {
     "selftest": ("enhance_head", "enhance_tail", "warp_affine_u8",
                  "corner_response", "lk_track"),
     "wide band": ("enhance_head", "enhance_tail", "warp_affine_u8",
-                  "corner_response", "lk_track"),
+                  "corner_response", "lk_track", "interior_rect"),
     "homography roll": ("enhance_u8", "warp_affine_u8", "warp_homography_u8",
                         "corner_response", "lk_track"),
 }
@@ -3792,6 +3883,9 @@ def main() -> int:
         # K6d, the Newton loop; the gather probes K6a-K6c in "also_replaces"
         "lk_track": ("video_stab_tpu_torch/csrc/lk.cu",
                      "tools/lk_inkernel_probe.py:332"),
+        # No Pallas kernel: the JAX package's jax.lax.while_loop
+        "interior_rect": ("video_stab_tpu_torch/csrc/azc.cu",
+                          "video_stab_tpu/core/autozoomcrop.py:33"),
     }
     rows = []
     for name, (src, rep) in meta.items():

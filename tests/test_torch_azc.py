@@ -30,33 +30,13 @@ from video_stab_tpu_torch.core.params import (  # noqa: E402
     RollCorrectionParams,
 )
 
-H, W = 72, 96
+from azc_masks import H, MASKS, W  # noqa: E402
 
 
 def _rotated(img, deg):
     m = cv2.getRotationMatrix2D((W / 2.0, H / 2.0), deg, 1.0)
     return cv2.warpAffine(img, m, (W, H), flags=cv2.INTER_LINEAR,
                           borderMode=cv2.BORDER_CONSTANT, borderValue=0)
-
-
-def _masks():
-    full = np.full((H, W), 255.0, np.float32)
-    out = {f"rot {d}": _rotated(full, d) for d in (2.0, -7.0, 30.0, 60.0)}
-    out["full"] = full
-    out["empty"] = np.zeros((H, W), np.float32)
-    tie = full.copy()
-    tie[:3, :] = 0.0
-    tie[-3:, :] = 0.0
-    tie[:, :3] = 0.0
-    tie[:, -3:] = 0.0
-    out["tie"] = tie                         # equal holes on every edge
-    dot = np.zeros((H, W), np.float32)
-    dot[30, 40] = 255.0
-    out["one pixel"] = dot
-    return out
-
-
-MASKS = _masks()
 
 
 @pytest.mark.parametrize("name", list(MASKS))

@@ -7,13 +7,17 @@ the crop and the resize as one axis-aligned resample
 (``ops/resize.py:resample_axis_aligned``), output size static.
 
 ``interior_rect`` is a ``jax.lax.while_loop`` of up to h + w iterations in
-the JAX package. Here it runs in chunks of ``RECT_CHUNK`` masked iterations
-on the device: an iteration moves the rectangle only while the loop's
+the JAX package. On the card it is one launch of K7 (``kernels/azc.py``,
+``csrc/azc.cu``), which runs the whole loop there and reads nothing back
+(``kernels.azc.RECT_KERNEL_LAUNCHES`` and the telemetry counter
+``azc_rect_kernel`` count its launches). On the CPU it runs as the plain
+version, ``interior_rect_plain``: chunks of ``RECT_CHUNK`` masked
+iterations, where an iteration moves the rectangle only while the loop's
 condition holds, and a finished rectangle stays put, so any number of
 extra iterations leaves the JAX result. After each chunk the host reads
 one "still shrinking" flag (``RECT_READS`` and the telemetry counter
-``azc_rect_reads`` count those reads, each inside a ``vstab.azc_read``
-span); a loop that never reads back is later work.
+``azc_rect_reads`` count those reads of the plain version, each inside a
+``vstab.azc_read`` span).
 """
 
 from __future__ import annotations
@@ -25,13 +29,14 @@ import torch
 
 from video_stab_tpu_torch import pick_device
 from video_stab_tpu_torch.core.params import AutoZoomCropParams
+from video_stab_tpu_torch.kernels import azc as kazc
 from video_stab_tpu_torch.ops.color import bgr_to_gray, saturate_u8
 from video_stab_tpu_torch.ops.filters import morph_close, threshold_binary
 from video_stab_tpu_torch.ops.resize import resample_axis_aligned
 from video_stab_tpu_torch.utils import telemetry
 
 RECT_CHUNK = 32   # masked shrink iterations between two host reads
-RECT_READS = 0    # host reads interior_rect has made since import
+RECT_READS = 0    # host reads the plain version has made since import
 
 
 def _edge_holes(cum: torch.Tensor, rect: torch.Tensor, h: int, w: int
@@ -74,12 +79,40 @@ def _shrink(cum: torch.Tensor, rect: torch.Tensor, h: int, w: int
     return rect + torch.where(go & move, sign, torch.zeros_like(sign)), go
 
 
+def _prefix_table(content: torch.Tensor) -> torch.Tensor:
+    """The flat int32 table of hole counts that the shrink loop reads:
+    per-row prefix sums (h rows of w + 1, each from 0), then per-column
+    ones (w columns of h + 1)."""
+    h, w = content.shape
+    dev = content.device
+    holes = (~content).to(torch.int32)
+    zero_col = torch.zeros((h, 1), dtype=torch.int32, device=dev)
+    zero_row = torch.zeros((w, 1), dtype=torch.int32, device=dev)
+    return torch.cat([
+        torch.cat([zero_col, holes.cumsum(1, dtype=torch.int32)], 1)
+        .reshape(-1),
+        torch.cat([zero_row, holes.t().cumsum(1, dtype=torch.int32)], 1)
+        .reshape(-1)])
+
+
 def interior_rect(mask: torch.Tensor, max_iters: Optional[int] = None,
                   ) -> torch.Tensor:
     """Largest interior rectangle of a binary content mask (H, W) float
     (0 / > 0) by iterative border shrinking: (4,) int32 [x0, y0, x1, y1],
-    inclusive corners, on the mask's device. One host read per
-    ``RECT_CHUNK`` iterations run."""
+    inclusive corners, on the mask's device, after at most ``max_iters``
+    moves (None: h + w, the whole loop). A CUDA mask: one launch of K7, no
+    host read. Else the plain version, ``interior_rect_plain``."""
+    if not mask.is_cuda:
+        return interior_rect_plain(mask, max_iters)
+    h, w = mask.shape
+    return kazc.interior_rect_cuda(_prefix_table(mask > 0), h, w,
+                                   h + w if max_iters is None else max_iters)
+
+
+def interior_rect_plain(mask: torch.Tensor, max_iters: Optional[int] = None,
+                        ) -> torch.Tensor:
+    """Plain PyTorch version of ``interior_rect`` (any device): chunks of
+    ``RECT_CHUNK`` masked iterations, one host read after each."""
     global RECT_READS
     h, w = mask.shape
     dev = mask.device
@@ -92,14 +125,7 @@ def interior_rect(mask: torch.Tensor, max_iters: Optional[int] = None,
         torch.where(any_row, ys, torch.full_like(ys, h)).min(),
         torch.where(any_col, xs, torch.full_like(xs, -1)).max(),
         torch.where(any_row, ys, torch.full_like(ys, -1)).max()])
-    holes = (~content).to(torch.int32)
-    zero_col = torch.zeros((h, 1), dtype=torch.int32, device=dev)
-    zero_row = torch.zeros((w, 1), dtype=torch.int32, device=dev)
-    cum = torch.cat([
-        torch.cat([zero_col, holes.cumsum(1, dtype=torch.int32)], 1)
-        .reshape(-1),
-        torch.cat([zero_row, holes.t().cumsum(1, dtype=torch.int32)], 1)
-        .reshape(-1)])
+    cum = _prefix_table(content)
     if max_iters is None:
         max_iters = h + w
     done = 0
@@ -196,4 +222,4 @@ def _azc_np(params: AutoZoomCropParams, frame, device: torch.device
 
 
 __all__ = ["AutoZoomCrop", "auto_zoom_crop_f32", "auto_zoom_crop_step",
-           "interior_rect"]
+           "interior_rect", "interior_rect_plain"]

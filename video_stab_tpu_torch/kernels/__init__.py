@@ -10,12 +10,15 @@ the JAX package (counterparts of ``video_stab_tpu/pallas/``):
 - ``lk``       K6  pyramidal LK Newton ladder, one launch (the in-kernel
                LK probes K6a-K6d, tools/lk_kernel_proto.py and
                tools/lk_inkernel_probe.py)
+- ``azc``      K7  auto zoom-crop's shrink loop, one launch (no Pallas
+               kernel: the JAX package's jax.lax.while_loop,
+               core/autozoomcrop.py:interior_rect)
 
 Each module holds the kernels' wrappers, their plain PyTorch versions and
 a module-level launch counter per kernel (``warp.LAUNCHES`` and
 ``warp.HOMOGRAPHY_LAUNCHES``, ``features.LAUNCHES``, ``enhance.LAUNCHES``,
-``traj.CONVOLVE_LAUNCHES``, ``traj.CENTERED_LAUNCHES`` and
-``lk.LAUNCHES``), which the
+``traj.CONVOLVE_LAUNCHES``, ``traj.CENTERED_LAUNCHES``, ``lk.LAUNCHES``
+and ``azc.RECT_KERNEL_LAUNCHES``), which the
 kernel's wrapper increments once per launch and nowhere else. A wrapper
 given a CUDA tensor launches the kernel or raises; a CPU tensor takes the
 plain version.

@@ -25,7 +25,8 @@ import torch
 from video_stab_tpu_torch import native
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("warp.cu", "features.cu", "enhance.cu", "traj.cu", "lk.cu")
+SOURCES = ("warp.cu", "features.cu", "enhance.cu", "traj.cu", "lk.cu",
+           "azc.cu")
 # --fmad=false: no multiply-add contraction anywhere, so every kernel's
 # float32 arithmetic is the same as its plain PyTorch version's.
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -68,6 +69,8 @@ _SIGNATURES = {
     # iters, eps2, min_eig_thresh, out_pts, status, err, steps, stream
     "vs_lk_track_batched": (_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _F,
                             _P, _P, _P, _P, _P),
+    # cum, h, w, max_iters, rect, stream
+    "vs_interior_rect": (_P, _I, _I, _I, _P, _P),
 }
 
 _lock = threading.Lock()
