@@ -93,7 +93,7 @@ def _params(pm, case):
         fmt = "i420"
     elif case == "homography roll":
         stab = pm.StabilizerParams(**SMALL, motion_model="homography")
-    elif case == "two-pass narrow":
+    elif case in ("two-pass narrow", "fused narrow"):
         pass
     return dict(mode=mode, enhancer=enh, roll=roll, stabilizer=stab,
                 azc=azc, fuse_roll=case != "two-pass narrow"), fmt
@@ -187,11 +187,14 @@ def test_pre_stages_within_one_level(frames, band):
             assert (d == 0).mean() >= 0.999
 
 
-def test_analyze_step_matches_jax(frames):
-    """chain_analyze_step_fn fills the queue without emitting."""
-    jkw, _ = _params(jparams, "narrow azc i420")
-    tkw, _ = _params(tparams, "narrow azc i420")
+@pytest.mark.parametrize("case", ["narrow azc i420", "fused narrow"])
+def test_analyze_step_matches_jax(frames, case):
+    """chain_analyze_step_fn fills the queue without emitting, on the
+    two-pass route (auto zoom-crop) and on the fused one."""
+    jkw, _ = _params(jparams, case)
+    tkw, _ = _params(tparams, case)
     jp, tp = jchain.ChainParams(**jkw), tchain.ChainParams(**tkw)
+    assert tp.roll_fusion_active == (case == "fused narrow")
     js = jchain.chain_init_step(jp, jchain.chain_state_init(jp, H, W),
                                 jnp.asarray(frames[0]))
     ts = tchain.chain_init_step_fn(

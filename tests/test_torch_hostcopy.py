@@ -6,8 +6,12 @@ Held: on a CPU device ``to_device`` / ``to_host`` return what ``.to()`` /
 other strides, gray frames and (N, H, W, 3) batches; ``as_device_frame``
 and ``as_device_frames`` return, and raise, what their copy lines did
 before they took the helper; the wrappers deliver the same frames through
-it; no pinned or pageable counter moves on a CPU device. The page-locked
-path runs only on the card: ``tests/test_torch_cuda.py`` holds it.
+it; no pinned or pageable counter moves on a CPU device;
+``start_to_host(t).numpy()`` is ``to_host(t)`` there; the numpy-facing
+APIs (``Enhancer``, ``RollCorrection``, ``AutoZoomCrop``,
+``LegacyStabilizer``) take one ``to_device`` and one ``to_host`` a frame
+and deliver what their steps compute. The page-locked path runs only on
+the card: ``tests/test_torch_cuda.py`` holds it.
 """
 
 import numpy as np
@@ -16,12 +20,28 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from video_stab_tpu_torch.core.autozoomcrop import (  # noqa: E402
+    AutoZoomCrop,
+    auto_zoom_crop_step,
+)
 from video_stab_tpu_torch.core.chain import ProcessingChain  # noqa: E402
+from video_stab_tpu_torch.core.enhancer import (  # noqa: E402
+    Enhancer,
+    enhance_frame_u8,
+)
+from video_stab_tpu_torch.core.legacy import LegacyStabilizer  # noqa: E402
 from video_stab_tpu_torch.core.params import (  # noqa: E402
+    AutoZoomCropParams,
     EnhancerParams,
+    LegacyStabilizerParams,
     ModeParams,
     RollCorrectionParams,
     StabilizerParams,
+)
+from video_stab_tpu_torch.core.rollcorrection import (  # noqa: E402
+    RollCorrection,
+    roll_correct_step,
+    roll_state_init,
 )
 from video_stab_tpu_torch.core.stabilizer import (  # noqa: E402
     Stabilizer,
@@ -122,6 +142,22 @@ def test_to_host_on_the_cpu_is_cpu_numpy(name):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("name", ["numpy frame", "strided view", "batch",
+                                  "gray frame", "tensor view"])
+def test_start_to_host_on_the_cpu_is_to_host(name):
+    """A download started off CUDA hands back what ``to_host`` gives, and
+    the tensor it was made from."""
+    x = INPUTS[name]
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(x))
+    d = hostcopy.start_to_host(t)
+    assert d.tensor is t
+    got, want = d.numpy(), hostcopy.to_host(t)
+    assert isinstance(got, np.ndarray)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("name", ["numpy frame", "cpu tensor",
                                   "strided view", "channel-reversed view",
                                   "tensor view", "float frame",
@@ -197,3 +233,74 @@ def test_no_pin_counter_moves_on_the_cpu(wrapper):
     outs.append(flush())
     assert any(o is not None for o in outs)
     assert _pin_counts() == before
+
+
+def _per_frame_api(api):
+    """(call(frame) -> delivered frames, the same frames computed by the
+    API's step functions on tensors) for one numpy-facing API."""
+    if api == "enhancer":
+        p = EnhancerParams(brightness=5.0, contrast=1.1, gamma=0.9)
+        return (lambda f: [Enhancer.enhance_image(f, p, device="cpu")],
+                lambda f: [enhance_frame_u8(p, torch.from_numpy(f))[0]])
+    if api == "roll":
+        p = RollCorrectionParams(hough_threshold=30)
+        rc, state = RollCorrection(p, device="cpu"), [roll_state_init(CPU)]
+
+        def want(f):
+            state[0], out = roll_correct_step(p, state[0], torch.from_numpy(f))
+            return [out]
+        return lambda f: [rc.auto_correct_roll(f)], want
+    if api == "azc":
+        p = AutoZoomCropParams(enabled=True)
+        return (lambda f: [AutoZoomCrop.apply(f, p, device="cpu")],
+                lambda f: [auto_zoom_crop_step(p, torch.from_numpy(f))])
+    p = LegacyStabilizerParams(smoothing_radius=2, max_corners=32,
+                               min_distance=4.0, min_tracking_features=4)
+    got = LegacyStabilizer(p, mode=ModeParams(use_cuda=False))
+    twin = LegacyStabilizer(p, mode=ModeParams(use_cuda=False))
+
+    def call(f):
+        if f is None:
+            return [got.flush(), got.flush()]
+        return [got.stabilize(f)]
+
+    def want(f):
+        if f is None:
+            return [twin._emit() if twin._queued > 0 else None
+                    for _ in range(2)]
+        return [twin.stabilize_device(f)]
+    return call, want
+
+
+@pytest.mark.parametrize("api", ["enhancer", "roll", "azc", "legacy"])
+def test_numpy_apis_copy_through_hostcopy(api, monkeypatch):
+    """Each numpy-facing API uploads each frame with one ``to_device`` and
+    downloads each delivered frame with one ``to_host``, and delivers the
+    frames its steps compute."""
+    counts = {"up": 0, "down": 0}
+    up, down = hostcopy.to_device, hostcopy.to_host
+
+    def count_up(x, device):
+        counts["up"] += 1
+        return up(x, device)
+
+    def count_down(t):
+        counts["down"] += 1
+        return down(t)
+
+    call, want = _per_frame_api(api)
+    frames = [_u8((48, 64, 3), seed) for seed in range(6)]
+    # None: the legacy stream's flush.
+    inputs = frames + [None] if api == "legacy" else frames
+    monkeypatch.setattr(hostcopy, "to_device", count_up)
+    monkeypatch.setattr(hostcopy, "to_host", count_down)
+    got = [o for f in inputs for o in call(f)]
+    monkeypatch.undo()
+    wanted = [o for f in inputs for o in want(f)]
+    assert [o is None for o in got] == [o is None for o in wanted]
+    delivered = [(a, b) for a, b in zip(got, wanted) if a is not None]
+    assert counts == {"up": len(frames), "down": len(delivered)}
+    assert len(delivered) >= 4
+    for a, b in delivered:
+        assert isinstance(a, np.ndarray)
+        np.testing.assert_array_equal(a, b.numpy())

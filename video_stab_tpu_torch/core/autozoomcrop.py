@@ -33,7 +33,7 @@ from video_stab_tpu_torch.kernels import azc as kazc
 from video_stab_tpu_torch.ops.color import bgr_to_gray, saturate_u8
 from video_stab_tpu_torch.ops.filters import morph_close, threshold_binary
 from video_stab_tpu_torch.ops.resize import resample_axis_aligned
-from video_stab_tpu_torch.utils import telemetry
+from video_stab_tpu_torch.utils import hostcopy, telemetry
 
 RECT_CHUNK = 32   # masked shrink iterations between two host reads
 RECT_READS = 0    # host reads the plain version has made since import
@@ -217,8 +217,8 @@ class AutoZoomCrop:
 
 def _azc_np(params: AutoZoomCropParams, frame, device: torch.device
             ) -> np.ndarray:
-    t = torch.from_numpy(np.ascontiguousarray(frame, dtype=np.uint8))
-    return auto_zoom_crop_step(params, t.to(device)).cpu().numpy()
+    return hostcopy.to_host(auto_zoom_crop_step(
+        params, hostcopy.to_device(frame, device)))
 
 
 __all__ = ["AutoZoomCrop", "auto_zoom_crop_f32", "auto_zoom_crop_step",

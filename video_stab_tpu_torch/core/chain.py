@@ -17,10 +17,11 @@ frame, as the JAX package estimates it from the float frame. In the
 it exactly; in the wider band the JAX package warps (and zoom-crops) the
 unsaturated float, and the port's frame may differ from it by one level.
 
-``output_format="i420"`` converts each delivered frame to planar I420 on
-the device. ``ProcessingChain(pipelined=True)`` hands back each frame one
-call late: on CUDA, ``process()`` copies frame i - 1 to pinned host memory
-on a side stream while frame i runs.
+``_pre`` picks the route once a step. ``output_format="i420"`` converts
+each delivered frame to planar I420 on the device.
+``ProcessingChain(pipelined=True)`` hands back each frame one call late:
+frame i - 1's copy to the host (``hostcopy.start_to_host``) runs while
+frame i is computed.
 """
 
 from __future__ import annotations
@@ -227,18 +228,25 @@ def _deliver(params: ChainParams, out_u8: torch.Tensor) -> torch.Tensor:
     return out_u8
 
 
-def chain_init_step_fn(params: ChainParams, state: ChainState,
-                       frame_u8: torch.Tensor) -> ChainState:
-    check_supported(params)
+def _pre(params: ChainParams, state: ChainState, frame_u8: torch.Tensor):
+    """The pre-stages on the chain's roll route. Returns (roll_state,
+    stabilizer params, u8 frame, the stabilizer steps' extra keywords):
+    fused, ``stabilizer_eff`` and the angle and rotated analysis gray;
+    two-pass, ``params.stabilizer`` and none."""
     if params.roll_fusion_active:
         roll_state, f, alpha, gray_rot = _pre_stages_fused(params, state,
                                                            frame_u8)
-        stab = stabilizer_init_step_fn(params.stabilizer_eff, state.stab, f,
-                                       aux_roll=alpha,
-                                       analysis_gray=gray_rot)
-        return ChainState(roll=roll_state, stab=stab)
+        return (roll_state, params.stabilizer_eff, f,
+                dict(aux_roll=alpha, analysis_gray=gray_rot))
     roll_state, f = _pre_stages(params, state, frame_u8)
-    stab = stabilizer_init_step_fn(params.stabilizer, state.stab, f)
+    return roll_state, params.stabilizer, f, {}
+
+
+def chain_init_step_fn(params: ChainParams, state: ChainState,
+                       frame_u8: torch.Tensor) -> ChainState:
+    check_supported(params)
+    roll_state, sp, f, kw = _pre(params, state, frame_u8)
+    stab = stabilizer_init_step_fn(sp, state.stab, f, **kw)
     return ChainState(roll=roll_state, stab=stab)
 
 
@@ -252,37 +260,17 @@ def chain_gated_step_fn(params: ChainParams, state: ChainState,
     ``redetect_tick`` / ``ransac_draws``: see the stabilizer's analyze
     step."""
     check_supported(params)
-    if params.roll_fusion_active:
-        roll_state, f, alpha, gray_rot = _pre_stages_fused(params, state,
-                                                           frame_u8)
-        sp = params.stabilizer_eff
-        stab, _metrics = stabilizer_analyze_step_fn(
-            sp, state.stab, f, aux_roll=alpha, analysis_gray=gray_rot,
-            redetect_tick=redetect_tick, ransac_draws=ransac_draws)
-        stab, out, ready = stabilizer_emit_gated_fn(sp, stab)
-        return (ChainState(roll=roll_state, stab=stab),
-                _deliver(params, out), ready)
-    roll_state, f = _pre_stages(params, state, frame_u8)
+    roll_state, sp, f, kw = _pre(params, state, frame_u8)
     if params.mode.stabilizer_enabled:
         stab, _metrics = stabilizer_analyze_step_fn(
-            params.stabilizer, state.stab, f, redetect_tick=redetect_tick,
-            ransac_draws=ransac_draws)
-        stab, out, ready = stabilizer_emit_gated_fn(params.stabilizer, stab)
+            sp, state.stab, f, redetect_tick=redetect_tick,
+            ransac_draws=ransac_draws, **kw)
+        stab, out, ready = stabilizer_emit_gated_fn(sp, stab)
     else:
         stab, out = state.stab, f
         ready = torch.ones((), dtype=torch.bool, device=f.device)
     return ChainState(roll=roll_state, stab=stab), _deliver(params, out), \
         ready
-
-
-def chain_step_fn(params: ChainParams, state: ChainState,
-                  frame_u8: torch.Tensor, redetect_tick: Optional[int] = None,
-                  ransac_draws: RansacDraws = None,
-                  ) -> tuple[ChainState, torch.Tensor]:
-    """chain_gated_step_fn minus the readiness flag."""
-    state, out, _ready = chain_gated_step_fn(params, state, frame_u8,
-                                             redetect_tick, ransac_draws)
-    return state, out
 
 
 def chain_analyze_step_fn(params: ChainParams, state: ChainState,
@@ -292,18 +280,10 @@ def chain_analyze_step_fn(params: ChainParams, state: ChainState,
     """Warm-up variant: pre-stages + analyze without emitting, so the
     look-ahead queue fills to effective_radius."""
     check_supported(params)
-    if params.roll_fusion_active:
-        roll_state, f, alpha, gray_rot = _pre_stages_fused(params, state,
-                                                           frame_u8)
-        stab, _metrics = stabilizer_analyze_step_fn(
-            params.stabilizer_eff, state.stab, f, aux_roll=alpha,
-            analysis_gray=gray_rot, redetect_tick=redetect_tick,
-            ransac_draws=ransac_draws)
-        return ChainState(roll=roll_state, stab=stab)
-    roll_state, f = _pre_stages(params, state, frame_u8)
+    roll_state, sp, f, kw = _pre(params, state, frame_u8)
     stab, _metrics = stabilizer_analyze_step_fn(
-        params.stabilizer, state.stab, f, redetect_tick=redetect_tick,
-        ransac_draws=ransac_draws)
+        sp, state.stab, f, redetect_tick=redetect_tick,
+        ransac_draws=ransac_draws, **kw)
     return ChainState(roll=roll_state, stab=stab)
 
 
@@ -311,26 +291,8 @@ def chain_flush_step_fn(params: ChainParams, state: ChainState
                         ) -> tuple[ChainState, torch.Tensor]:
     """Emit-only step: drain one frame from the look-ahead queue, through
     the delivered format."""
-    sp = params.stabilizer_eff if params.roll_fusion_active \
-        else params.stabilizer
-    stab, out = stabilizer_emit_step_fn(sp, state.stab)
+    stab, out = stabilizer_emit_step_fn(params.stabilizer_eff, state.stab)
     return ChainState(roll=state.roll, stab=stab), _deliver(params, out)
-
-
-class _InFlight(NamedTuple):
-    """A pipelined output: the device frame and, once ``process`` has
-    started it, its copy to pinned host memory and the event that ends it."""
-
-    out: torch.Tensor
-    host: Optional[torch.Tensor] = None
-    copied: Optional[torch.cuda.Event] = None
-
-    def numpy(self) -> np.ndarray:
-        with telemetry.trace("vstab.download"):
-            if self.host is None:
-                return hostcopy.to_host(self.out)
-            self.copied.synchronize()
-            return self.host.numpy()
 
 
 class ProcessingChain:
@@ -342,8 +304,7 @@ class ProcessingChain:
 
     ``pipelined=True`` hands back each frame one call late: ``process``
     returns frame i - 1, whose device-to-host copy ran while frame i was
-    computed (on CUDA a side stream copies it to pinned memory; an event
-    ends the copy before the buffer is read). ``drain()`` fetches the last
+    computed (``hostcopy.start_to_host``). ``drain()`` fetches the last
     in-flight frame; ``flush()`` returns it first."""
 
     def __init__(self, mode: ModeParams, enhancer: EnhancerParams,
@@ -363,8 +324,7 @@ class ProcessingChain:
         self.device = pick_device(mode.use_cuda)
         self.pipelined = pipelined
         self.ransac_draws = ransac_draws
-        self._pending: Optional[_InFlight] = None
-        self._copy_stream: Optional[torch.cuda.Stream] = None
+        self._pending: Optional[hostcopy.Download] = None
         self._state: Optional[ChainState] = None
         self._shape = None
         # Host mirrors of the device's warm-up counters: steady state reads
@@ -421,25 +381,6 @@ class ProcessingChain:
                 self._emitted += 1
             return out
 
-    def _start_copy(self, out: torch.Tensor) -> _InFlight:
-        """Start the copy of ``out`` to pinned host memory on the side
-        stream, after the work that produced it."""
-        if not out.is_cuda:
-            return _InFlight(out)
-        with telemetry.trace("vstab.download"):
-            if self._copy_stream is None:
-                self._copy_stream = torch.cuda.Stream(out.device)
-            self._copy_stream.wait_stream(
-                torch.cuda.current_stream(out.device))
-            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            with torch.cuda.stream(self._copy_stream):
-                host.copy_(out, non_blocking=True)
-                copied = torch.cuda.Event()
-                copied.record()
-            # The allocator may reuse out's memory only after the copy.
-            out.record_stream(self._copy_stream)
-            return _InFlight(out, host, copied)
-
     def process_device(self, frame) -> Optional[torch.Tensor]:
         """One step per frame; the processed frame as a device tensor (None
         during the stabilizer warm-up, and on the first ready call when
@@ -447,24 +388,28 @@ class ProcessingChain:
         out = self._step(frame)
         if out is None or not self.pipelined:
             return out
-        prev, self._pending = self._pending, _InFlight(out)
-        return None if prev is None else prev.out
+        prev, self._pending = self._pending, hostcopy.Download(out)
+        return None if prev is None else prev.tensor
 
     def process(self, frame) -> Optional[np.ndarray]:
         with telemetry.trace("vstab.process"):
             out = self._step(frame)
             if out is None:
                 return None
-            if not self.pipelined:
-                with telemetry.trace("vstab.download"):
+            with telemetry.trace("vstab.download"):
+                if not self.pipelined:
                     return hostcopy.to_host(out)
-            prev, self._pending = self._pending, self._start_copy(out)
-            return None if prev is None else prev.numpy()
+                prev, self._pending = (self._pending,
+                                       hostcopy.start_to_host(out))
+                return None if prev is None else prev.numpy()
 
     def drain(self) -> Optional[np.ndarray]:
         """Pipelined mode: fetch the last in-flight frame."""
         prev, self._pending = self._pending, None
-        return None if prev is None else prev.numpy()
+        if prev is None:
+            return None
+        with telemetry.trace("vstab.download"):
+            return prev.numpy()
 
     def flush(self) -> Optional[np.ndarray]:
         """Drain one remaining look-ahead frame at end of stream; when
@@ -491,4 +436,4 @@ class ProcessingChain:
 __all__ = ["ChainParams", "ChainState", "ProcessingChain",
            "chain_analyze_step_fn", "chain_flush_step_fn",
            "chain_gated_step_fn", "chain_init_step_fn",
-           "chain_state_from_numpy", "chain_state_init", "chain_step_fn"]
+           "chain_state_from_numpy", "chain_state_init"]

@@ -39,6 +39,7 @@ from video_stab_tpu_torch.ops.filters import (
     clahe,
     unsharp_mask,
 )
+from video_stab_tpu_torch.utils import hostcopy
 
 
 def vibrance(img: torch.Tensor, strength: float) -> torch.Tensor:
@@ -135,9 +136,8 @@ class Enhancer:
 
 def _enhance_np(params: EnhancerParams, frame, device: torch.device
                 ) -> np.ndarray:
-    t = torch.from_numpy(np.ascontiguousarray(frame, dtype=np.uint8))
-    out, _ = enhance_frame_u8(params, t.to(device))
-    return out.cpu().numpy()
+    out, _ = enhance_frame_u8(params, hostcopy.to_device(frame, device))
+    return hostcopy.to_host(out)
 
 
 __all__ = ["Enhancer", "clahe_lab", "enhance_frame", "enhance_frame_u8",

@@ -37,7 +37,7 @@ from video_stab_tpu_torch.ops.lk import lk_track
 from video_stab_tpu_torch.ops.warp import (border_mode_from_name,
                                            similarity_matrix,
                                            warp_affine_fast)
-from video_stab_tpu_torch.utils import telemetry
+from video_stab_tpu_torch.utils import hostcopy, telemetry
 
 
 def _detect_features(params: LegacyStabilizerParams, gray: torch.Tensor):
@@ -226,13 +226,13 @@ class LegacyStabilizer:
 
     def stabilize(self, frame) -> Optional[np.ndarray]:
         out = self.stabilize_device(frame)
-        return None if out is None else out.cpu().numpy()
+        return None if out is None else hostcopy.to_host(out)
 
     def flush(self) -> Optional[np.ndarray]:
         """Drain one remaining queued frame."""
         if self._state is None or self._queued <= 0:
             return None
-        return self._emit().cpu().numpy()
+        return hostcopy.to_host(self._emit())
 
     def clean(self) -> None:
         self._state = None

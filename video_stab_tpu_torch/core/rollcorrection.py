@@ -23,6 +23,7 @@ from video_stab_tpu_torch.ops.color import bgr_to_gray
 from video_stab_tpu_torch.ops.hough import hough_lines
 from video_stab_tpu_torch.ops.resize import resize_bilinear
 from video_stab_tpu_torch.ops.warp import BORDER_REPLICATE, rotation_matrix_2d
+from video_stab_tpu_torch.utils import hostcopy
 
 
 class RollState(NamedTuple):
@@ -112,10 +113,9 @@ class RollCorrection:
         return float(self._state.smoothed_angle)
 
     def auto_correct_roll(self, frame) -> np.ndarray:
-        t = torch.from_numpy(np.ascontiguousarray(frame, dtype=np.uint8))
-        self._state, out = roll_correct_step(self.params, self._state,
-                                             t.to(self.device))
-        return out.cpu().numpy()
+        self._state, out = roll_correct_step(
+            self.params, self._state, hostcopy.to_device(frame, self.device))
+        return hostcopy.to_host(out)
 
     def reset(self) -> None:
         self._state = roll_state_init(self.device)

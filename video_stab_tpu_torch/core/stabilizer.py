@@ -746,20 +746,6 @@ def stabilizer_step_metrics_fn(params: StabilizerParams,
     return state, out, ready, metrics
 
 
-def stabilizer_step_fn(params: StabilizerParams, state: StabilizerState,
-                       frame_u8: torch.Tensor,
-                       redetect_tick: Optional[int] = None,
-                       ransac_draws: RansacDraws = None,
-                       ) -> tuple[StabilizerState, torch.Tensor, torch.Tensor]:
-    """Steady-state combined step: analyze the incoming frame and emit the
-    oldest queued one; ``ready`` is False until the queue holds
-    effective_radius frames."""
-    state, out, ready, _ = stabilizer_step_metrics_fn(
-        params, state, frame_u8, redetect_tick=redetect_tick,
-        ransac_draws=ransac_draws)
-    return state, out, ready
-
-
 def batched_init_step_fn(params: StabilizerParams, state: StabilizerState,
                          frames_u8: torch.Tensor) -> StabilizerState:
     """``stabilizer_init_step_fn`` for N streams: (N, H, W, 3) frames, one

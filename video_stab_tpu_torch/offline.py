@@ -314,6 +314,9 @@ def stabilize_clip_device(frames,
     check_supported(params)
     dev = torch.device(device) if device is not None \
         else pick_device((mode or ModeParams()).use_cuda)
+    # The whole clip goes up (and comes back in stabilize_clip) through
+    # pageable memory, not utils/hostcopy.py: a pinned block of a clip
+    # would stay in the host cache for the life of the process.
     if isinstance(frames, torch.Tensor):
         clip = frames.to(device=dev, dtype=torch.uint8).contiguous()
     else:
