@@ -70,6 +70,10 @@ Phases (any failure is an uncaught exception and a nonzero exit):
    against its plain version (the chunked loop, on the card), the moves
    each runs, its time from a prefix table warm in L2 (as the cumsums
    leave it on the path) and ``latency_floor_us``, one L2 read a move.
+   K8 (auto zoom-crop's content mask) at 1080x1920x3, ksize 5, threshold
+   10: bit for bit against its plain version (gray, threshold, close, on
+   the card) on the pool's frames (no black) and on frames turned 20 and
+   60 deg with black corners, timed over cold frames.
 4. The paths, each with the kernels' launch counters zeroed just before it
    and read just after (each kernel of the path must be > 0):
    a. ``ProcessingChain`` with exactly the ``__graft_entry__.entry()``
@@ -574,6 +578,7 @@ def check_kernels(torch, dev, launch_floor) -> dict:
     results.update(check_new_kernels(torch, dev, frame, cold, launch_floor))
     results.update(check_lk(torch, dev))
     results.update(check_interior_rect(torch, dev))
+    results.update(check_content_mask(torch, dev, cold))
     return results
 
 
@@ -658,6 +663,45 @@ def check_interior_rect(torch, dev) -> dict:
     row = dict(cases["no holes"], cases=cases, max_abs_err=0.0,
                library="none: no PyTorch call runs the shrink loop")
     return {"interior_rect": row}
+
+
+# K8's own operations per pixel: the gray and the threshold's compare (the
+# close is a few integer operations a 32-pixel word).
+MASK_FLOPS = GRAY_FLOPS + 1
+
+
+def check_content_mask(torch, dev, cold) -> dict:
+    """Phase 3, K8: the content mask on the card against its plain version
+    (on the card) bit for bit at 1080x1920, ksize 5, threshold 10, on the
+    pool's frames (``cold``, no black) and on frames turned 20 and 60 deg
+    about the centre with black corners (``azc_masks_1080p``); timed over
+    the N_COLD pool frames in float32 (398 MB, past the 50 MB L2)."""
+    from video_stab_tpu_torch.core import autozoomcrop as tazc
+    from video_stab_tpu_torch.kernels import azc as kazc
+
+    thresh, ksize = 10.0, 5
+    frames = [c.float() for c in cold]
+    turned = [frames[0] * torch.from_numpy(m / 255.0).to(dev)[..., None]
+              for m in list(azc_masks_1080p().values())[1:]]
+    for f in [frames[0], frames[1]] + turned:
+        got = kazc.content_mask_cuda(f, thresh, ksize)
+        want = tazc.content_mask_plain(f, thresh, ksize)
+        assert torch.equal(got, want), int((got != want).sum())
+    holes = [int((kazc.content_mask_cuda(f, thresh, ksize) == 0).sum())
+             for f in turned]
+    n_px = 1080 * 1920
+    row = timing(torch, "K8 content_mask 1080x1920x3 ksize 5",
+                 lambda i: kazc.content_mask_cuda(frames[i % N_COLD],
+                                                  thresh, ksize),
+                 lambda i: tazc.content_mask_plain(frames[i % N_COLD],
+                                                   thresh, ksize),
+                 ["content_mask_kernel"], n_px * (12 + 4),
+                 n_px * MASK_FLOPS)
+    print(f"K8 content_mask: kernel = plain on 2 pool frames and 2 turned "
+          f"ones ({holes} pixels outside the content)")
+    row.update(max_abs_err=0.0, turned_holes=holes,
+               library="none: no PyTorch call computes the close")
+    return {"content_mask": row}
 
 
 # K4's head mode: the table's stages per value (the table is built per
@@ -1421,7 +1465,8 @@ def kernel_modules():
             "box_filter_convolve": (ktraj, "CONVOLVE_LAUNCHES"),
             "box_filter_centered": (ktraj, "CENTERED_LAUNCHES"),
             "lk_track": (klk, "LAUNCHES"),
-            "interior_rect": (kazc, "RECT_KERNEL_LAUNCHES")}
+            "interior_rect": (kazc, "RECT_KERNEL_LAUNCHES"),
+            "content_mask": (kazc, "MASK_KERNEL_LAUNCHES")}
 
 
 def zero_counts() -> None:
@@ -1747,7 +1792,8 @@ CONFIG_KERNELS = {
     "selftest": ("enhance_head", "enhance_tail", "warp_affine_u8",
                  "corner_response", "lk_track"),
     "wide band": ("enhance_head", "enhance_tail", "warp_affine_u8",
-                  "corner_response", "lk_track", "interior_rect"),
+                  "corner_response", "lk_track", "interior_rect",
+                  "content_mask"),
     "homography roll": ("enhance_u8", "warp_affine_u8", "warp_homography_u8",
                         "corner_response", "lk_track"),
 }
@@ -3886,6 +3932,9 @@ def main() -> int:
         # No Pallas kernel: the JAX package's jax.lax.while_loop
         "interior_rect": ("video_stab_tpu_torch/csrc/azc.cu",
                           "video_stab_tpu/core/autozoomcrop.py:33"),
+        # No Pallas kernel: XLA ops (gray, threshold, close)
+        "content_mask": ("video_stab_tpu_torch/csrc/azc.cu",
+                         "video_stab_tpu/core/autozoomcrop.py:105"),
     }
     rows = []
     for name, (src, rep) in meta.items():

@@ -10,6 +10,13 @@ one version to the next). ``RECTS[name][max_iters]`` is the JAX package's
 rect for each mask after at most ``max_iters`` moves (None: the whole
 loop), written down here so that the card's tests hold K7 to it without
 JAX; ``test_torch_azc_kernel.py`` holds it to the JAX package on the CPU.
+
+``mask_frame`` makes the BGR frames that K8 (the content mask) is held to
+its plain version on, on the CPU through a replay of the kernel's tiles
+and on the card: random colours, or values within 0.5 of a threshold (a
+quarter of them on it), turned about the centre with black corners, at
+the ``MASK_SHAPES`` (one pixel, a few, and sizes that cut K8's tiles
+raggedly).
 """
 
 import numpy as np
@@ -28,6 +35,25 @@ def rotated_content(deg: float, h: int = H, w: int = W) -> np.ndarray:
     sx, sy = c * dx + s * dy, c * dy - s * dx
     inside = (np.abs(sx) < 4096 * w) & (np.abs(sy) < 4096 * h)
     return np.where(inside, 255.0, 0.0).astype(np.float32)
+
+
+MASK_SHAPES = ((1, 1), (2, 3), (5, 7), (33, 257), (70, 530))
+MASK_KSIZES = (1, 3, 5, 7, 15)
+MASK_THRESHOLDS = (0.0, 10.0, 200.0)
+
+
+def mask_frame(h: int, w: int, seed: int, deg: float = 20.0,
+               near=None) -> np.ndarray:
+    """(h, w, 3) float32 BGR: uniform random u8 values, or with ``near``
+    values in near +- 0.5 and a quarter of the pixels exactly near, black
+    where the frame turned by ``deg`` leaves it (``rotated_content``)."""
+    rng = np.random.default_rng(seed)
+    if near is None:
+        img = rng.integers(0, 256, (h, w, 3)).astype(np.float32)
+    else:
+        img = (near + rng.uniform(-0.5, 0.5, (h, w, 3))).astype(np.float32)
+        img[rng.random((h, w)) < 0.25] = np.float32(near)
+    return img * (rotated_content(deg, h, w) / 255.0)[..., None]
 
 
 def _masks():

@@ -3,7 +3,12 @@ package's, on the CPU.
 
 ``interior_rect`` (chunked masked iterations here, a while_loop there)
 gives identical rectangles on rotated content masks, on a tie, with no
-content and with full content; the chunk reads are counted.
+content and with full content; the chunk reads are counted. The content
+mask's plain version, ``content_mask_plain`` (K8's on the card), is the
+composition gray -> threshold -> close bit for bit, and the JAX
+package's mask by the rules of the ops' own tests: the gray within 1e-3
+(a matmul there), threshold and close exact, so the masks differ only
+where the two grays fall on either side of the threshold.
 ``auto_zoom_crop_step`` / ``AutoZoomCrop`` within 1 on >= 99.5 % of
 pixels (two-tap resample here, dense tent matrices there); the JAX
 ``roll_correct_step`` against the port's (K1's plain version) with the
@@ -20,6 +25,8 @@ import cv2  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from video_stab_tpu.core import autozoomcrop as jazc  # noqa: E402
+from video_stab_tpu.ops import color as jcolor  # noqa: E402
+from video_stab_tpu.ops import filters as jfilt  # noqa: E402
 from video_stab_tpu.core import rollcorrection as jroll  # noqa: E402
 from video_stab_tpu.core.params import AutoZoomCropParams as JAzcParams  # noqa: E402
 from video_stab_tpu.core.params import RollCorrectionParams as JRollParams  # noqa: E402
@@ -29,8 +36,13 @@ from video_stab_tpu_torch.core.params import (  # noqa: E402
     AutoZoomCropParams,
     RollCorrectionParams,
 )
+from video_stab_tpu_torch.ops.color import bgr_to_gray  # noqa: E402
+from video_stab_tpu_torch.ops.filters import (  # noqa: E402
+    morph_close,
+    threshold_binary,
+)
 
-from azc_masks import H, MASKS, W  # noqa: E402
+from azc_masks import H, MASK_THRESHOLDS, MASKS, W, mask_frame  # noqa: E402
 
 
 def _rotated(img, deg):
@@ -110,6 +122,55 @@ def test_auto_zoom_crop_without_content_resizes_the_frame():
     np.testing.assert_array_equal(
         tazc.AutoZoomCrop.apply(img, AutoZoomCropParams(**kw), device="cpu"),
         got)
+
+
+# The JAX comparison's shapes and ellipses (the card's tests take more).
+JAX_MASK_SHAPES = [(1, 1), (2, 3), (5, 7), (1080, 1920)]
+JAX_MASK_KSIZES = [3, 5, 7]
+
+
+@pytest.mark.parametrize("thresh", MASK_THRESHOLDS)
+@pytest.mark.parametrize("ksize", JAX_MASK_KSIZES)
+@pytest.mark.parametrize("shape", JAX_MASK_SHAPES)
+def test_content_mask_plain_is_the_composition(shape, ksize, thresh):
+    """``content_mask_plain`` is gray -> threshold -> close bit for bit,
+    and a CPU frame's ``content_mask`` is it."""
+    f = torch.from_numpy(mask_frame(*shape, ksize, deg=10.0 + 2 * ksize))
+    want = morph_close(threshold_binary(bgr_to_gray(f), thresh, 255.0),
+                       ksize)
+    got = tazc.content_mask_plain(f, thresh, ksize)
+    assert got.shape == shape and got.dtype == torch.float32
+    assert torch.equal(got, want)
+    assert torch.equal(tazc.content_mask(f, thresh, ksize), want)
+    if shape[0] > 7:                      # black corners and content
+        assert 0 < int((got > 0).sum()) < got.numel()
+
+
+@pytest.mark.parametrize("thresh", MASK_THRESHOLDS)
+@pytest.mark.parametrize("ksize", JAX_MASK_KSIZES)
+@pytest.mark.parametrize("shape", JAX_MASK_SHAPES)
+def test_content_mask_plain_matches_jax(shape, ksize, thresh):
+    """Against the JAX package's mask: the grays within 1e-3, and the
+    port's close of the JAX threshold is the JAX mask bit for bit, so the
+    masks agree wherever no pixel's two grays straddle the threshold."""
+    frame = mask_frame(*shape, ksize + 1, deg=30.0 - 2 * ksize)
+    f, jf = torch.from_numpy(frame), jnp.asarray(frame)
+    g_t = bgr_to_gray(f).numpy()
+    g_j = np.asarray(jcolor.bgr_to_gray(jf))
+    np.testing.assert_allclose(g_t, g_j, atol=1e-3, rtol=0)
+    want = np.asarray(jfilt.morph_close(
+        jfilt.threshold_binary(jcolor.bgr_to_gray(jf), thresh, 255.0),
+        ksize))
+    got = tazc.content_mask_plain(f, thresh, ksize).numpy()
+    np.testing.assert_array_equal(
+        morph_close(threshold_binary(torch.from_numpy(g_j.copy()), thresh,
+                                     255.0), ksize).numpy(), want)
+    t = np.float32(thresh)
+    split = np.argwhere((g_t > t) != (g_j > t))
+    # A straddling pixel reaches 2r pixels through the dilate and erode.
+    for y, x in np.argwhere(got != want):
+        assert len(split) and np.abs(split - (y, x)).max(1).min() \
+            <= 2 * (ksize // 2), (y, x)
 
 
 def test_roll_correct_step_matches_jax():

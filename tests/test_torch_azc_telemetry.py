@@ -11,7 +11,12 @@ inside ``vstab.roll`` and every analyze step one ``vstab.i420`` inside
 ``azc_rect_reads`` counter and ``RECT_READS`` move together (frames with
 a black corner, so that the shrink loop reads more than once a frame); the
 delivered frames are the same bit for bit with the profiler recording
-and without.
+and without. The kernels' counters: each launch of K8 (the content mask)
+and of K7 (the shrink loop) counts once as ``azc_mask_kernel`` and
+``azc_rect_kernel``, beside ``MASK_KERNEL_LAUNCHES`` and
+``RECT_KERNEL_LAUNCHES``, and a refused launch counts nothing (the
+wrappers driven here by a stand-in for the kernel library; the card's
+tests count them on the chain).
 """
 
 import json
@@ -31,6 +36,8 @@ from video_stab_tpu_torch.core.params import (  # noqa: E402
     RollCorrectionParams,
     StabilizerParams,
 )
+from video_stab_tpu_torch.kernels import _lib  # noqa: E402
+from video_stab_tpu_torch.kernels import azc as kazc  # noqa: E402
 from video_stab_tpu_torch.utils import telemetry  # noqa: E402
 
 H, W = 96, 128
@@ -139,3 +146,47 @@ def test_outputs_are_the_same_with_and_without_recording(tmp_path):
     for a, b in zip(traced, plain):
         if a is not None:
             np.testing.assert_array_equal(a, b)
+
+
+class _Library:
+    """Stands in for the built kernel library: each entry records its call
+    and returns ``rc``."""
+
+    def __init__(self, rc: int = 0):
+        self.rc, self.calls = rc, []
+
+    def vs_content_mask(self, *args):
+        self.calls.append("mask")
+        return self.rc
+
+    def vs_interior_rect(self, *args):
+        self.calls.append("rect")
+        return self.rc
+
+
+def test_mask_and_rect_kernels_count_once_a_launch(monkeypatch):
+    frame = torch.zeros((H, W, 3))
+    cum = torch.zeros(kazc.table_size(H, W), dtype=torch.int32)
+    lib = _Library()
+    monkeypatch.setattr(_lib, "library", lambda: lib)
+    monkeypatch.setattr(_lib, "require_cuda", lambda *a: None)
+    monkeypatch.setattr(_lib, "stream_handle", lambda device: 0)
+
+    def counts():
+        c = telemetry.counters()
+        return (c.get("azc_mask_kernel", 0), c.get("azc_rect_kernel", 0),
+                kazc.MASK_KERNEL_LAUNCHES, kazc.RECT_KERNEL_LAUNCHES)
+
+    before = counts()
+    for _ in range(3):
+        kazc.content_mask_cuda(frame, 10.0, 5)
+        kazc.interior_rect_cuda(cum, H, W, H + W)
+    assert lib.calls == ["mask", "rect"] * 3
+    assert [a - b for a, b in zip(counts(), before)] == [3, 3, 3, 3]
+    lib.rc = 1                             # a refused launch
+    before = counts()
+    with pytest.raises(RuntimeError, match="content_mask"):
+        kazc.content_mask_cuda(frame, 10.0, 5)
+    with pytest.raises(RuntimeError, match="interior_rect"):
+        kazc.interior_rect_cuda(cum, H, W, H + W)
+    assert counts() == before

@@ -12,7 +12,15 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from azc_masks import MASKS, MAX_ITERS, RECTS  # noqa: E402
+from azc_masks import (  # noqa: E402
+    MASK_KSIZES,
+    MASK_SHAPES,
+    MASK_THRESHOLDS,
+    MASKS,
+    MAX_ITERS,
+    RECTS,
+    mask_frame,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -931,6 +939,119 @@ def test_interior_rect_kernel_at_1080p_without_host_sync(dev, deg):
     if deg:
         x0, y0, x1, y1 = want.tolist()
         assert (x1 - x0) + (y1 - y0) < 1919 + 1079 - 100
+
+
+def _k8_against_plain(dev, frame: np.ndarray, thresh: float, ksize: int
+                      ) -> None:
+    """K8 on the card against the plain mask on the card and on the CPU,
+    bit for bit, one launch, no host sync during the call."""
+    from video_stab_tpu_torch.core import autozoomcrop as tazc
+    from video_stab_tpu_torch.kernels import azc as kazc
+    f = torch.from_numpy(frame)
+    fd = f.to(dev)
+    want = tazc.content_mask_plain(fd, thresh, ksize)
+    torch.cuda.synchronize()
+    launches = kazc.MASK_KERNEL_LAUNCHES
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tazc.content_mask(fd, thresh, ksize)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert kazc.MASK_KERNEL_LAUNCHES == launches + 1
+    assert got.dtype == torch.float32 and got.shape == frame.shape[:2]
+    assert torch.equal(got, want), int((got != want).sum())
+    assert torch.equal(got.cpu(), tazc.content_mask_plain(f, thresh, ksize))
+
+
+@pytest.mark.parametrize("ksize", MASK_KSIZES)
+@pytest.mark.parametrize("shape", MASK_SHAPES)
+def test_content_mask_kernel_matches_plain(dev, shape, ksize):
+    """K8 against the plain mask on odd shapes (tiles cut raggedly) at
+    every threshold, on random colours turned with black corners and on
+    values on and within 0.5 of each threshold."""
+    h, w = shape
+    for i, t in enumerate(MASK_THRESHOLDS):
+        _k8_against_plain(dev, mask_frame(h, w, ksize + i,
+                                          deg=10.0 + 2 * ksize), t, ksize)
+        _k8_against_plain(dev, mask_frame(h, w, ksize + i, deg=25.0,
+                                          near=t), t, ksize)
+
+
+@pytest.mark.parametrize("thresh", MASK_THRESHOLDS)
+def test_content_mask_kernel_at_1080p(dev, thresh):
+    """K8 at the restream cell's shape, ksize 5: the cell's pool frames
+    (``benchmark_torch/frames.py``, no black), frames turned 10-30 deg
+    with black corners, and values within 0.5 of the threshold."""
+    from benchmark_torch.frames import make_pool
+    pool = make_pool(2 ** 31 + 7, 4, 1, 1080, 1920, dev)
+    for i in range(pool.shape[0]):
+        _k8_against_plain(dev, pool[i, 0].float().cpu().numpy(), thresh, 5)
+    for seed, deg in ((1, 10.0), (2, 20.0), (3, 30.0)):
+        _k8_against_plain(dev, mask_frame(1080, 1920, seed, deg=deg),
+                          thresh, 5)
+    _k8_against_plain(dev, mask_frame(1080, 1920, 4, deg=15.0, near=thresh),
+                      thresh, 5)
+
+
+def test_content_mask_kernel_refuses(dev):
+    """K8's wrapper refuses another dtype, a non-contiguous frame, a
+    frame that is not (H, W, 3), an empty one and a ksize it has no
+    ellipse for, and launches nothing."""
+    from video_stab_tpu_torch.kernels import azc as kazc
+    f = torch.from_numpy(mask_frame(40, 70, 3)).to(dev)
+    launches = kazc.MASK_KERNEL_LAUNCHES
+    for bad, ksize, match in ((f.double(), 5, "float32"),
+                              (f.transpose(0, 1), 5, "contiguous"),
+                              (f[..., 0].contiguous(), 5, "-d"),
+                              (f[..., :2].contiguous(), 5, "H, W, 3"),
+                              (f[:0], 5, "H, W, 3"), (f, 6, "ksize"),
+                              (f, kazc.MASK_MAX_KSIZE + 2, "ksize")):
+        with pytest.raises(ValueError, match=match):
+            kazc.content_mask_cuda(bad, 10.0, ksize)
+    assert kazc.MASK_KERNEL_LAUNCHES == launches
+
+
+def test_restream_chain_with_k8_matches_the_plain_mask(dev, monkeypatch):
+    """The restream cell's chain (its config and pool) over 48 calls: the
+    delivered I420 frames with K8 and with the plain mask on the card are
+    identical, and K8 runs once a zoom-crop, beside K7."""
+    import json
+    from pathlib import Path
+
+    from benchmark_torch.frames import make_pool
+    from benchmark_torch.systems.chain_azc import System
+    from video_stab_tpu_torch.core import autozoomcrop as tazc
+    from video_stab_tpu_torch.kernels import azc as kazc
+    from video_stab_tpu_torch.utils import telemetry
+    root = Path(__file__).resolve().parent.parent
+    cfg = json.loads((root / "benchmark_torch" / "configs"
+                      / "chain_azc_kalman_1080p.json").read_text())
+    seed = 2 ** 31 + 11
+    pool = make_pool(seed, cfg["pool_frames"], 1, cfg["height"],
+                     cfg["width"], dev).cpu().numpy()
+
+    def counts():
+        c = telemetry.counters()
+        return (kazc.MASK_KERNEL_LAUNCHES, c.get("azc_mask_kernel", 0),
+                kazc.RECT_KERNEL_LAUNCHES, c.get("azc_rect_kernel", 0))
+
+    def run():
+        before = counts()
+        system = System(cfg, pool, seed, dev)
+        outs = [system.call(i) for i in range(48)]
+        system.close()
+        return outs, [a - b for a, b in zip(counts(), before)]
+
+    got, n = run()
+    assert n == [48, 48, 48, 48]
+    monkeypatch.setattr(tazc, "content_mask", tazc.content_mask_plain)
+    want, n = run()
+    assert n == [0, 0, 48, 48]
+    assert [o is None for o in got] == [o is None for o in want]
+    assert sum(o is not None for o in got) >= 24
+    for a, b in zip(got, want):
+        if a is not None:
+            np.testing.assert_array_equal(a, b)
 
 
 def test_translation_prior_matches_the_cpu(dev):

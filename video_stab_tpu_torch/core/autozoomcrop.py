@@ -1,7 +1,7 @@
 """Auto zoom-crop — port of ``video_stab_tpu/core/autozoomcrop.py``.
 
 Removes the black corners a roll rotation leaves: a content mask
-(threshold, morphological close), the largest interior rectangle by
+(gray, threshold, morphological close), the largest interior rectangle by
 iterative border shrinking, re-centred to the frame's aspect ratio, then
 the crop and the resize as one axis-aligned resample
 (``ops/resize.py:resample_axis_aligned``), output size static.
@@ -18,6 +18,11 @@ extra iterations leaves the JAX result. After each chunk the host reads
 one "still shrinking" flag (``RECT_READS`` and the telemetry counter
 ``azc_rect_reads`` count those reads of the plain version, each inside a
 ``vstab.azc_read`` span).
+
+The content mask, ``content_mask``, is on the card one launch of K8
+(``kernels/azc.py``, ``csrc/azc.cu``; ``kernels.azc.MASK_KERNEL_LAUNCHES``
+and the telemetry counter ``azc_mask_kernel``), and on the CPU the plain
+composition, ``content_mask_plain``.
 """
 
 from __future__ import annotations
@@ -142,6 +147,24 @@ def interior_rect_plain(mask: torch.Tensor, max_iters: Optional[int] = None,
     return rect
 
 
+def content_mask(frame: torch.Tensor, thresh: float, ksize: int
+                 ) -> torch.Tensor:
+    """The content mask of a float32 (H, W, 3) BGR frame: (H, W) float32,
+    255 where the gray's threshold at ``thresh``, closed by the ``ksize``
+    ellipse, is set, else 0. A CUDA frame: one launch of K8. Else the
+    plain version, ``content_mask_plain``."""
+    if not frame.is_cuda:
+        return content_mask_plain(frame, thresh, ksize)
+    return kazc.content_mask_cuda(frame.contiguous(), thresh, ksize)
+
+
+def content_mask_plain(frame: torch.Tensor, thresh: float, ksize: int
+                       ) -> torch.Tensor:
+    """Plain PyTorch version of ``content_mask`` (any device)."""
+    return morph_close(threshold_binary(bgr_to_gray(frame), thresh, 255.0),
+                       ksize)
+
+
 def _div(x: torch.Tensor, d: float) -> torch.Tensor:
     """x / d with d on x's device: a true division on CUDA too (a CPU
     scalar divisor becomes a multiply by its reciprocal there)."""
@@ -156,9 +179,8 @@ def auto_zoom_crop_f32(params: AutoZoomCropParams, frame: torch.Tensor,
     h, w = frame.shape[:2]
     if keep_input_size is None:
         keep_input_size = params.keep_input_size
-    content = threshold_binary(bgr_to_gray(frame), params.content_threshold,
-                               255.0)
-    content = morph_close(content, params.morph_kernel)
+    content = content_mask(frame, params.content_threshold,
+                           params.morph_kernel)
     rect = interior_rect(content)
     x0 = rect[0].to(torch.float32)
     y0 = rect[1].to(torch.float32)
@@ -222,4 +244,5 @@ def _azc_np(params: AutoZoomCropParams, frame, device: torch.device
 
 
 __all__ = ["AutoZoomCrop", "auto_zoom_crop_f32", "auto_zoom_crop_step",
-           "interior_rect", "interior_rect_plain"]
+           "content_mask", "content_mask_plain", "interior_rect",
+           "interior_rect_plain"]

@@ -150,3 +150,207 @@ extern "C" int vs_interior_rect(const void* cum, int h, int w, int max_iters,
       static_cast<const int*>(cum), h, w, max_iters, static_cast<int*>(rect));
   return static_cast<int>(cudaGetLastError());
 }
+
+// ---------------------------------------------------------------------------
+// K8: auto zoom-crop's content mask, gray, threshold and close, in one
+// launch.
+//
+// Replaces no Pallas kernel: in the JAX package the mask is XLA ops
+// (video_stab_tpu/core/autozoomcrop.py:105-107, ops/filters.py:141-160).
+// Without this kernel the port dispatches it from the host: the gray, the
+// threshold, and for each of the ellipse's off-centre offsets, in the
+// dilate and again in the erode, a roll of the whole plane, its validity
+// mask and a max or min, ~550 launches a frame at ksize 5 (the plain
+// version, video_stab_tpu_torch/core/autozoomcrop.py:content_mask_plain).
+//
+// Computes morph_close(threshold_binary(bgr_to_gray(frame), thresh, 255),
+// ksize) bit for bit: gray = (b * 0.114 + g * 0.587) + r * 0.299, each
+// product rounded to float32 (__fmul_rn / __fadd_rn, no contraction, as
+// K4's gray in csrc/enhance.cu); content = gray > thresh in float32; a
+// dilate over the ellipse of ops/filters.py:_ellipse_offsets(ksize), the
+// neighbours outside the frame skipped (its -inf fill), then an erode over
+// the same ellipse, the outside skipped again (+inf). On a 0 / 255 mask
+// max and min are OR and AND, so the close runs on bits. Input: the
+// contiguous float32 (h, w, 3) BGR frame; output: the (h, w) float32 0 /
+// 255 plane.
+//
+// The ellipse is one run of dx in [-hw, hw] per row dy in [-r, r]; the
+// wrapper passes the run's half-widths, 4 bits a row (row dy in bits
+// 4 (dy + r) ..), r <= kMaskMaxR (ksize <= 15).
+//
+// Bound on the H100: bytes. 1080p reads 24.9 MB and writes 8.3 MB: 9.9 us
+// at 3.35 TB/s. The close itself is a few integer operations a 32-pixel
+// word. A block takes a tile of kTileRows rows by kTileWords 32-pixel
+// words and reads the frame once for it plus a halo of 2r rows above and
+// below and 2r columns left and right (only the lanes of those columns
+// load): 1.3 times the tile's bytes at r = 2, the halo mostly from L2,
+// where the neighbouring tiles have just read it. The reads are
+// per-lane (b, g, r) loads of neighbouring pixels, kBatch row-words a
+// warp in flight at once; the threshold of a warp's 32 pixels becomes one
+// word by __ballot_sync, in shared memory. The dilate ORs each row's run
+// as funnel shifts of a word and its neighbours, over the tile plus an
+// r-row, one-word halo; outside the frame its bits are set (what the
+// erode skips). The erode ANDs likewise over the tile. Each output pixel
+// is written once, 128 contiguous bytes a warp.
+
+namespace {
+
+constexpr int kMaskMaxR = 7;
+constexpr int kMaskThreads = 512;
+constexpr int kMaskWarps = kMaskThreads / 32;
+constexpr int kTileWords = 8;                  // 256 output columns
+constexpr int kTileRows = 32;
+constexpr int kRowWords = kTileWords + 2;      // a halo word each side
+constexpr int kBatch = 8;                      // row-words in flight a warp
+
+__device__ __forceinline__ float gray_bgr(float b, float g, float r) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(b, 0.114f), __fmul_rn(g, 0.587f)),
+                   __fmul_rn(r, 0.299f));
+}
+
+__host__ __device__ __forceinline__ int half_width(
+    unsigned long long hw_bits, int row) {
+  return static_cast<int>((hw_bits >> (4 * row)) & 15ull);
+}
+
+// Bit i of the result: the OR (dilate) or AND (erode) of bits i - hw ..
+// i + hw of the row ... left | word | right ..., bit 0 the leftmost pixel.
+template <bool kOr>
+__device__ __forceinline__ unsigned run_of(unsigned left, unsigned word,
+                                           unsigned right, int hw) {
+  unsigned v = word;
+  for (int s = 1; s <= hw; ++s) {
+    const unsigned a = __funnelshift_r(word, right, s);  // pixel x + s
+    const unsigned b = __funnelshift_l(left, word, s);   // pixel x - s
+    v = kOr ? (v | a | b) : (v & a & b);
+  }
+  return v;
+}
+
+// The bits of the word whose bit 0 is pixel (y, xs) that lie in the frame.
+__device__ __forceinline__ unsigned in_frame_bits(int y, int xs, int h,
+                                                  int w) {
+  if (y < 0 || y >= h) return 0u;
+  const int lo = max(0, -xs), hi = min(32, w - xs);
+  if (hi <= lo) return 0u;
+  return static_cast<unsigned>(((1ull << hi) - 1ull) & ~((1ull << lo) - 1ull));
+}
+
+__global__ void __launch_bounds__(kMaskThreads)
+content_mask_kernel(const float* __restrict__ frame, int h, int w,
+                    float thresh, int r, unsigned long long hw_bits,
+                    float* __restrict__ out) {
+  // m: rows y0 - 2r ..; d: rows y0 - r ..; both words -1 .. kTileWords.
+  __shared__ unsigned m[kTileRows + 4 * kMaskMaxR][kRowWords];
+  __shared__ unsigned d[kTileRows + 2 * kMaskMaxR][kRowWords];
+  __shared__ unsigned e[kTileRows][kTileWords];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int x0 = blockIdx.x * kTileWords * 32;
+  const int y0 = blockIdx.y * kTileRows;
+  const int wx = x0 - 32;                    // column of word -1's bit 0
+
+  // 1. The threshold's bits, a row-word a warp.
+  const int m_items = (kTileRows + 4 * r) * kRowWords;
+  for (int base = warp; base < m_items; base += kMaskWarps * kBatch) {
+    float cb[kBatch], cg[kBatch], cr[kBatch];
+    bool in[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int item = base + k * kMaskWarps;
+      const int row = item / kRowWords;
+      const int word = item - row * kRowWords;
+      const int y = y0 - 2 * r + row;
+      const int x = wx + 32 * word + lane;
+      // Of the halo words only the 2r columns next to the tile are read.
+      const bool need = (word > 0 || lane >= 32 - 2 * r) &&
+                        (word < kRowWords - 1 || lane < 2 * r);
+      in[k] = item < m_items && need && y >= 0 && y < h && x >= 0 && x < w;
+      cb[k] = cg[k] = cr[k] = 0.0f;
+      if (in[k]) {
+        const float* p = frame + 3 * (static_cast<long long>(y) * w + x);
+        cb[k] = __ldg(p);
+        cg[k] = __ldg(p + 1);
+        cr[k] = __ldg(p + 2);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int item = base + k * kMaskWarps;
+      const unsigned bits = __ballot_sync(
+          kFull, in[k] && gray_bgr(cb[k], cg[k], cr[k]) > thresh);
+      if (lane == 0 && item < m_items) (&m[0][0])[item] = bits;
+    }
+  }
+  __syncthreads();
+
+  // 2. The dilate over the tile and an r-row, one-word halo; bits outside
+  //    the frame set.
+  const int d_items = (kTileRows + 2 * r) * kRowWords;
+  for (int item = tid; item < d_items; item += kMaskThreads) {
+    const int row = item / kRowWords;
+    const int word = item - row * kRowWords;
+    unsigned acc = 0u;
+    for (int dy = -r; dy <= r; ++dy) {
+      const unsigned* mr = m[row + r + dy];
+      acc |= run_of<true>(word > 0 ? mr[word - 1] : 0u, mr[word],
+                          word < kRowWords - 1 ? mr[word + 1] : 0u,
+                          half_width(hw_bits, dy + r));
+    }
+    d[row][word] = acc | ~in_frame_bits(y0 - r + row, wx + 32 * word, h, w);
+  }
+  __syncthreads();
+
+  // 3. The erode over the tile.
+  for (int item = tid; item < kTileRows * kTileWords; item += kMaskThreads) {
+    const int row = item / kTileWords;
+    const int word = item - row * kTileWords + 1;
+    unsigned acc = ~0u;
+    for (int dy = -r; dy <= r; ++dy) {
+      const unsigned* dr = d[row + r + dy];
+      acc &= run_of<false>(dr[word - 1], dr[word], dr[word + 1],
+                           half_width(hw_bits, dy + r));
+    }
+    e[row][word - 1] = acc;
+  }
+  __syncthreads();
+
+  // 4. The tile's pixels, 0 or 255.
+  for (int idx = tid; idx < kTileRows * kTileWords * 32;
+       idx += kMaskThreads) {
+    const int row = idx / (kTileWords * 32);
+    const int col = idx - row * (kTileWords * 32);
+    const int y = y0 + row, x = x0 + col;
+    if (y < h && x < w) {
+      out[static_cast<long long>(y) * w + x] =
+          ((e[row][col >> 5] >> (col & 31)) & 1u) ? 255.0f : 0.0f;
+    }
+  }
+}
+
+}  // namespace
+
+// frame: (h, w, 3) f32 BGR, contiguous; out: (h, w) f32; hw_bits: the
+// ellipse's half-width of row dy in bits 4 (dy + r) .. 4 (dy + r) + 3.
+extern "C" int vs_content_mask(const void* frame, int h, int w, float thresh,
+                               int r, unsigned long long hw_bits, void* out,
+                               void* stream) {
+  if (h <= 0 || w <= 0 || r < 0 || r > kMaskMaxR || frame == nullptr ||
+      out == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  for (int row = 0; row <= 2 * r; ++row) {
+    if (half_width(hw_bits, row) > r) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  const dim3 grid((w + kTileWords * 32 - 1) / (kTileWords * 32),
+                  (h + kTileRows - 1) / kTileRows);
+  if (grid.y > 65535u) return static_cast<int>(cudaErrorInvalidValue);
+  content_mask_kernel<<<grid, kMaskThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(frame), h, w, thresh, r, hw_bits,
+      static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}

@@ -13,12 +13,14 @@ the JAX package (counterparts of ``video_stab_tpu/pallas/``):
 - ``azc``      K7  auto zoom-crop's shrink loop, one launch (no Pallas
                kernel: the JAX package's jax.lax.while_loop,
                core/autozoomcrop.py:interior_rect)
+               K8  auto zoom-crop's content mask, one launch (no Pallas
+               kernel: XLA ops there, core/autozoomcrop.py:105-107)
 
 Each module holds the kernels' wrappers, their plain PyTorch versions and
 a module-level launch counter per kernel (``warp.LAUNCHES`` and
 ``warp.HOMOGRAPHY_LAUNCHES``, ``features.LAUNCHES``, ``enhance.LAUNCHES``,
-``traj.CONVOLVE_LAUNCHES``, ``traj.CENTERED_LAUNCHES``, ``lk.LAUNCHES``
-and ``azc.RECT_KERNEL_LAUNCHES``), which the
+``traj.CONVOLVE_LAUNCHES``, ``traj.CENTERED_LAUNCHES``, ``lk.LAUNCHES``,
+``azc.RECT_KERNEL_LAUNCHES`` and ``azc.MASK_KERNEL_LAUNCHES``), which the
 kernel's wrapper increments once per launch and nowhere else. A wrapper
 given a CUDA tensor launches the kernel or raises; a CPU tensor takes the
 plain version.

@@ -71,6 +71,8 @@ _SIGNATURES = {
                             _P, _P, _P, _P, _P),
     # cum, h, w, max_iters, rect, stream
     "vs_interior_rect": (_P, _I, _I, _I, _P, _P),
+    # frame, h, w, thresh, r, hw_bits, out, stream
+    "vs_content_mask": (_P, _I, _I, _F, _I, ctypes.c_ulonglong, _P, _P),
 }
 
 _lock = threading.Lock()
