@@ -1054,6 +1054,53 @@ def test_restream_chain_with_k8_matches_the_plain_mask(dev, monkeypatch):
             np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("rich", [(), (4, 5)], ids=["starved",
+                                                         "recovers"])
+def test_drone_config_on_starved_frames_matches_the_reference(dev, rich):
+    """The drone cell's config (``benchmark_torch/configs/
+    drone_hf_1080p.json``) at 1080p on frames with too few corners, so the
+    starvation counter passes 2 and CLAHE's gray is selected on the card
+    (with two frames that show more of the world, it resets and CLAHE is
+    dropped again): the counter after each call equals the plain
+    reference's (``benchmark_torch/reference/stream_drone.py``, run on the
+    card), and the delivered frames are within the cell's limits of its
+    frames."""
+    import json
+    from pathlib import Path
+
+    from drone_frames import starved_pool
+
+    from benchmark_torch import compare
+    from benchmark_torch.frames import stream_seed
+    from benchmark_torch.reference import stream_drone
+    from benchmark_torch.systems.stabilize_only import System
+    root = Path(__file__).resolve().parent.parent
+    cfg = json.loads((root / "benchmark_torch" / "configs"
+                      / "drone_hf_1080p.json").read_text())
+    seed, n_calls = 2 ** 31 + 11, 40
+    pool = starved_pool(8, cfg["height"], cfg["width"], rich)
+    system = System(cfg, pool, stream_seed(seed), dev)
+    got, counters = {}, []
+    for i in range(n_calls):
+        out = system.call(i)
+        if out is not None:
+            got[i] = out
+        counters.append(int(system.chain.state.stab.starvation_counter))
+    calls = sorted(c for c in got if c % 6 == 0) + [n_calls - 1]
+    pool_dev = torch.from_numpy(pool).to(dev)
+    ref = stream_drone._Stream(cfg, pool_dev, n_calls, lambda x: x)
+    ref.settle()
+    assert counters == ref.starved.tolist()
+    selected = ref.clahe_on[1:]
+    assert selected.any()
+    if rich:
+        assert not selected.all() and min(counters[8:]) == 0
+    want = stream_drone.outputs(cfg, pool_dev, n_calls, seed, calls)
+    checks = compare.numbers({c: got[c] for c in calls}, want)
+    limits = cfg["correct_limits"]
+    assert all(checks[k] <= limits[k] for k in limits), checks
+
+
 def test_translation_prior_matches_the_cpu(dev):
     from video_stab_tpu_torch.ops.lk import global_translation_prior
     world = _textured(160, 200, 5)

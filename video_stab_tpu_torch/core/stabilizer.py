@@ -300,8 +300,10 @@ def stabilizer_analyze_step_fn(params: StabilizerParams,
     # lives on the device, so CLAHE runs every frame and a select keeps or
     # drops it: no host read, at the cost of its ~40 small launches.
     if params.drone_high_freq_mode and params.enable_conditional_clahe:
-        gray = torch.where(state.starvation_counter > 2,
-                           clahe(gray, clip_limit=2.0, tile_grid=8), gray)
+        with telemetry.trace("vstab.clahe"):
+            telemetry.count("clahe_runs")
+            gray = torch.where(state.starvation_counter > 2,
+                               clahe(gray, clip_limit=2.0, tile_grid=8), gray)
 
     raw, curr_pts, valid, inliers, est_ok = _estimate_motion(
         params, state, gray, frame_u8.shape[-3:], ransac_draws)
@@ -310,14 +312,16 @@ def stabilizer_analyze_step_fn(params: StabilizerParams,
     # skipped by the homography model.
     hf = state.hf
     if params.drone_high_freq_mode and params.motion_model != "homography":
-        hf, raw = hf_apply(
-            hf, raw,
-            dead_zone_threshold=params.hf_dead_zone_threshold,
-            freeze_duration=params.hf_freeze_duration,
-            accumulator_decay=params.hf_motion_accumulator_decay,
-            shake_px=params.hf_shake_px,
-            rot_lp_alpha=params.hf_rot_lp_alpha,
-            horizon_lock=params.horizon_lock)
+        with telemetry.trace("vstab.hf"):
+            telemetry.count("hf_steps")
+            hf, raw = hf_apply(
+                hf, raw,
+                dead_zone_threshold=params.hf_dead_zone_threshold,
+                freeze_duration=params.hf_freeze_duration,
+                accumulator_decay=params.hf_motion_accumulator_decay,
+                shake_px=params.hf_shake_px,
+                rot_lp_alpha=params.hf_rot_lp_alpha,
+                horizon_lock=params.horizon_lock)
 
     tick = None if redetect_tick is None else int(redetect_tick)
     return _finish_analyze(params, state._replace(hf=hf), frame_u8, gray,
@@ -673,8 +677,11 @@ def _warp_bordered(params: StabilizerParams, state: StabilizerState,
         return state, warp(frame_u8)
     h, w = frame_u8.shape[:2]
     if params.crop_n_zoom:
-        cropped = warp(frame_u8)[b:h - b, b:w - b]
-        return state, saturate_u8(resize_bilinear(cropped, h, w))
+        warped = warp(frame_u8)
+        with telemetry.trace("vstab.crop_zoom"):
+            telemetry.count("crop_zoom_resamples")
+            return state, saturate_u8(resize_bilinear(
+                warped[b:h - b, b:w - b], h, w))
     if params.border_type != "fade":
         return state, warp(pad_frame(frame_u8, b, params.border_type))
     dev = frame_u8.device
