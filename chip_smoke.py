@@ -7,7 +7,7 @@ Phases (any failure is an uncaught exception and a nonzero exit):
 
 1. Environment: torch and CUDA versions, the card's name and power limit.
    Without a CUDA device the script exits 1 before printing any result.
-2. Build: the hand-written kernels (video_stab_tpu_torch/csrc/, six
+2. Build: the hand-written kernels (video_stab_tpu_torch/csrc/, seven
    sources, one nvcc each, started together) are compiled from the
    checkout's sources into build/torch_kernels/, and beside them, started
    at the same time, the empty kernel of csrc/launch_floor.cu, which only
@@ -73,14 +73,18 @@ Phases (any failure is an uncaught exception and a nonzero exit):
    K8 (auto zoom-crop's content mask) at 1080x1920x3, ksize 5, threshold
    10: bit for bit against its plain version (gray, threshold, close, on
    the card) on the pool's frames (no black) and on frames turned 20 and
-   60 deg with black corners, timed over cold frames.
+   60 deg with black corners, timed over cold frames. K9 (LK's planes:
+   both pyramids, the Scharr pair, the bfloat16 rounding, one launch a
+   level) bit for bit against its plain version (on the card) at 540x960
+   with 3 levels for one stream and for 8, and at 1080x1920 with 4
+   levels; timed at 540x960 for N = 1 and N = 8.
 4. The paths, each with the kernels' launch counters zeroed just before it
    and read just after (each kernel of the path must be > 0):
    a. ``ProcessingChain`` with exactly the ``__graft_entry__.entry()``
       parameters at 1920x1080 over 64 frames of textured content with a
       ~2 deg tilted horizon and per-frame jitter, then ``flush()``; output
       frames, the roll angle and the queue drain are checked (K1, K3, K4,
-      K6), and the GFTT NMS's host reads and rounds printed (the
+      K6, K9), and the GFTT NMS's host reads and rounds printed (the
       ``nms_reads`` and ``nms_rounds`` counters of
       ``utils.telemetry.counters()``);
    b. the streaming homography ``Stabilizer`` (smoothing_radius=15) at
@@ -579,6 +583,7 @@ def check_kernels(torch, dev, launch_floor) -> dict:
     results.update(check_lk(torch, dev))
     results.update(check_interior_rect(torch, dev))
     results.update(check_content_mask(torch, dev, cold))
+    results.update(check_lk_planes(torch, dev))
     return results
 
 
@@ -702,6 +707,76 @@ def check_content_mask(torch, dev, cold) -> dict:
     row.update(max_abs_err=0.0, turned_holes=holes,
                library="none: no PyTorch call computes the close")
     return {"content_mask": row}
+
+
+# K9's own operations per output pixel of a level: pyr_down's H pass (two
+# source rows' worth of 5 products and 4 sums a level column) and W pass
+# (5 and 4), Scharr's four 3-tap passes (prev only), the rounding.
+K9_DOWN_FLOPS, K9_SCHARR_FLOPS, K9_ROUND_FLOPS = 27, 20, 1
+
+
+def k9_work(n: int, h: int, w: int, max_level: int) -> tuple[int, int]:
+    """(bytes, operations) of one K9 call on n streams of (h, w) grays:
+    per level both sources read once, 3 + 1 planes written, below the top
+    level the unrounded level to scratch."""
+    nbytes = flops = 0
+    hs, ws = h, w
+    for level in range(max_level + 1):
+        hl, wl = ((hs + 1) // 2, (ws + 1) // 2) if level else (hs, ws)
+        px = n * hl * wl
+        nbytes += 4 * (2 * n * hs * ws + 4 * px
+                       + (2 * px if 0 < level < max_level else 0))
+        down = K9_DOWN_FLOPS if level else 0
+        flops += px * (2 * down + K9_SCHARR_FLOPS + 4 * K9_ROUND_FLOPS)
+        hs, ws = hl, wl
+    return nbytes, flops
+
+
+def check_lk_planes(torch, dev) -> dict:
+    """Phase 3, K9: LK's planes on the card against ``lk_planes_plain`` (on
+    the card) bit for bit at the main path's 540x960 with 3 levels, for one
+    stream (a real frame pair's analysis grays) and for 8 (multicam's
+    batch), and at the legacy stabilizer's 1080x1920 with 4 levels; timed
+    at 540x960 for N = 1 and N = 8 (3 launches a call)."""
+    from video_stab_tpu_torch.core.params import StabilizerParams
+    from video_stab_tpu_torch.core.stabilizer import _analysis_gray
+    from video_stab_tpu_torch.kernels import lk_planes as klp
+    from video_stab_tpu_torch.ops.color import bgr_to_gray
+    from video_stab_tpu_torch.ops.lk import lk_planes_plain
+
+    sp = StabilizerParams()
+    levels = sp.lk_levels
+    pair = torch.from_numpy(make_frames(1080, 1920, 2, seed=5)).to(dev)
+    prev, curr = (_analysis_gray(sp, f.float()) for f in pair)
+    prev8 = torch.stack([torch.roll(prev, 29 * k, dims=1)
+                         for k in range(8)]).contiguous()
+    curr8 = torch.stack([torch.roll(curr, 29 * k, dims=1)
+                         for k in range(8)]).contiguous()
+    full = [bgr_to_gray(f.float()).contiguous() for f in pair]
+    for p, c, lv in ((prev, curr, levels), (prev8, curr8, levels),
+                     (full[0], full[1], 3)):
+        launches = klp.PLANES_LAUNCHES
+        got = klp.lk_planes_cuda(p, c, lv)
+        assert klp.PLANES_LAUNCHES == launches + lv + 1
+        want = lk_planes_plain(p, c, lv)
+        for g, x in zip(got[0] + got[1], want[0] + want[1]):
+            assert torch.equal(g, x), int((g != x).sum())
+    h, w = prev.shape
+    cases = {}
+    for n, (p, c) in ((1, (prev, curr)), (8, (prev8, curr8))):
+        nbytes, flops = k9_work(n, h, w, levels)
+        label = f"K9 lk_planes {h}x{w} {levels + 1} levels N={n}"
+        cases[f"N={n}"] = timing(
+            torch, label, lambda i, p=p, c=c: klp.lk_planes_cuda(p, c, levels),
+            lambda i, p=p, c=c: lk_planes_plain(p, c, levels),
+            ["lk_planes_kernel"], nbytes, flops, per_call=levels + 1)
+    print(f"K9 lk_planes: kernel = plain at {h}x{w} ({levels + 1} levels, "
+          f"N = 1 and 8) and at 1080x1920 (4 levels), every plane")
+    row = dict(cases["N=1"], cases=cases, max_abs_err=0.0,
+               launches_per_call=levels + 1,
+               library="none: no PyTorch call builds the pyramids, the "
+                       "Scharr pair and the rounding")
+    return {"lk_planes": row}
 
 
 # K4's head mode: the table's stages per value (the table is built per
@@ -1413,7 +1488,7 @@ def run_slice(torch, dev, pool) -> dict:
     torch.cuda.synchronize()
     launches = {name: n for name, n in read_counts().items()
                 if name in ("warp_affine_u8", "corner_response",
-                            "enhance_u8", "lk_track")}
+                            "enhance_u8", "lk_track", "lk_planes")}
     counts = telemetry.counters()
     nms_syncs = counts.get("nms_reads", 0) - syncs0
     nms_rounds = counts.get("nms_rounds", 0) - counts0.get("nms_rounds", 0)
@@ -1454,6 +1529,7 @@ def kernel_modules():
     from video_stab_tpu_torch.kernels import enhance as kenh
     from video_stab_tpu_torch.kernels import features as kfeat
     from video_stab_tpu_torch.kernels import lk as klk
+    from video_stab_tpu_torch.kernels import lk_planes as klp
     from video_stab_tpu_torch.kernels import traj as ktraj
     from video_stab_tpu_torch.kernels import warp as kwarp
     return {"warp_affine_u8": (kwarp, "LAUNCHES"),
@@ -1466,7 +1542,8 @@ def kernel_modules():
             "box_filter_centered": (ktraj, "CENTERED_LAUNCHES"),
             "lk_track": (klk, "LAUNCHES"),
             "interior_rect": (kazc, "RECT_KERNEL_LAUNCHES"),
-            "content_mask": (kazc, "MASK_KERNEL_LAUNCHES")}
+            "content_mask": (kazc, "MASK_KERNEL_LAUNCHES"),
+            "lk_planes": (klp, "PLANES_LAUNCHES")}
 
 
 def zero_counts() -> None:
@@ -1803,8 +1880,9 @@ class LkSteps:
     """While ``on``, each of the stabilizer's ``lk_track`` calls also runs
     K6 twice more on the same planes with ``steps=``: once with the call's
     ``init_pts`` (the motion prior) and once without, keeping each valid
-    point's Newton steps on the device. Those two launches are
-    measurement: they are taken back out of K6's launch count."""
+    point's Newton steps on the device. Those two launches, and the K9
+    launches of the planes they read, are measurement: they are taken
+    back out of K6's and K9's launch counts."""
 
     def __init__(self, torch):
         from video_stab_tpu_torch.core import stabilizer as tstab
@@ -1827,8 +1905,9 @@ class LkSteps:
                         max_level=max_level, iters=iters, init_pts=init_pts)
         if self.on:
             from video_stab_tpu_torch.kernels import lk as klk
+            from video_stab_tpu_torch.kernels import lk_planes as klp
             from video_stab_tpu_torch.ops.lk import lk_planes
-            launches = klk.LAUNCHES
+            launches = klk.LAUNCHES, klp.PLANES_LAUNCHES
             if init_pts is not None:
                 self.shifts.append((init_pts - prev_pts).abs().amax())
             prev_planes, curr_planes = lk_planes(prev_gray, gray, max_level)
@@ -1840,7 +1919,7 @@ class LkSteps:
                                    ip, win, iters, 0.03, 1e-4, steps=steps)
                 # Masked at report time: a boolean index reads the device.
                 self.steps[label].append((steps, mask.clone()))
-            klk.LAUNCHES = launches
+            klk.LAUNCHES, klp.PLANES_LAUNCHES = launches
         return out
 
     def report(self, label) -> dict:
@@ -3935,6 +4014,9 @@ def main() -> int:
         # No Pallas kernel: XLA ops (gray, threshold, close)
         "content_mask": ("video_stab_tpu_torch/csrc/azc.cu",
                          "video_stab_tpu/core/autozoomcrop.py:105"),
+        # No Pallas kernel: XLA ops (pyramids, Scharr, bfloat16 rounding)
+        "lk_planes": ("video_stab_tpu_torch/csrc/lk_planes.cu",
+                      "video_stab_tpu/ops/lk.py"),
     }
     rows = []
     for name, (src, rep) in meta.items():

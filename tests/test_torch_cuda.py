@@ -402,7 +402,7 @@ def test_lk_track_launches_k6_once_per_call(dev):
 
 def test_lk_wrapper_rejects_bad_inputs(dev):
     from video_stab_tpu_torch.kernels import lk as klk
-    from video_stab_tpu_torch.ops.lk import lk_planes
+    from video_stab_tpu_torch.ops.lk import lk_planes, lk_planes_plain
     prev, curr = _lk_pair(dev, 96, 128, 5, (0.5, 0.5))
     prev_planes, curr_planes = lk_planes(prev, curr, 2)
     pts = torch.full((8, 2), 40.0, device=dev)
@@ -414,7 +414,9 @@ def test_lk_wrapper_rejects_bad_inputs(dev):
     with pytest.raises(ValueError, match="contiguous"):
         klk.lk_levels(prev_planes, [c.t().contiguous().t()
                                     for c in curr_planes], *args)
-    deep_prev, deep_curr = lk_planes(prev, curr, klk.MAX_LEVEL + 1)
+    # K9 refuses more levels than K6 takes: the deep planes are the plain
+    # version's.
+    deep_prev, deep_curr = lk_planes_plain(prev, curr, klk.MAX_LEVEL + 1)
     with pytest.raises(ValueError, match="levels"):
         klk.lk_levels(deep_prev, deep_curr, *args)
     assert klk.LAUNCHES == before
@@ -495,6 +497,164 @@ def test_lk_steps_argument_is_checked(dev):
                            steps=torch.zeros(7, dtype=torch.int32,
                                              device=dev))
     assert klk.LAUNCHES == before
+
+
+# --- K9: LK's planes, one launch a level ------------------------------------
+
+def _k9_against_plain(dev, prev, curr, max_level):
+    """K9 on the card against ``lk_planes_plain`` on the card, every plane
+    bit for bit; ``max_level + 1`` launches counted both ways and no host
+    sync during the call (the pyr_down tables are on the card after the
+    first call of a shape)."""
+    from video_stab_tpu_torch.kernels import lk_planes as klp
+    from video_stab_tpu_torch.ops.lk import lk_planes, lk_planes_plain
+    from video_stab_tpu_torch.utils import telemetry
+    want = lk_planes_plain(prev, curr, max_level)
+    lk_planes(prev, curr, max_level)
+    torch.cuda.synchronize()
+    launches = klp.PLANES_LAUNCHES
+    counted = telemetry.counters().get("lk_planes_kernel", 0)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = lk_planes(prev, curr, max_level)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert klp.PLANES_LAUNCHES == launches + max_level + 1
+    assert telemetry.counters()["lk_planes_kernel"] == \
+        counted + max_level + 1
+    assert len(got[0]) == len(got[1]) == max_level + 1
+    for level in range(max_level + 1):
+        for g, w in ((got[0][level], want[0][level]),
+                     (got[1][level], want[1][level])):
+            assert g.shape == w.shape and g.dtype == torch.float32
+            assert g.is_contiguous()
+            assert torch.equal(g, w), (level, int((g != w).sum()))
+
+
+def _k9_grays(dev, n, h, w, seed):
+    """(H, W) grays for n = 0, else (n, H, W): u8-domain texture."""
+    rng = np.random.default_rng(seed)
+    shape = (h, w) if n == 0 else (n, h, w)
+    out = []
+    for _ in range(2):
+        g = rng.uniform(0.0, 255.0, shape).astype(np.float32)
+        g[..., ::3, :] = np.round(g[..., ::3, :])
+        out.append(torch.from_numpy(g).to(dev))
+    return out
+
+
+K9_SHAPES = [(1, 1), (2, 3), (45, 67), (61, 83)]
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 8], ids=["HW", "N1", "N3", "N8"])
+@pytest.mark.parametrize("max_level", range(6))
+@pytest.mark.parametrize("shape", K9_SHAPES,
+                         ids=[f"{h}x{w}" for h, w in K9_SHAPES])
+def test_lk_planes_kernel_matches_plain(dev, shape, max_level, n):
+    """K9 on odd and tiny shapes at every level count K6 takes, for (H, W)
+    grays and for 1, 3 and 8 streams."""
+    prev, curr = _k9_grays(dev, n, *shape, seed=shape[0] * 7 + max_level)
+    _k9_against_plain(dev, prev, curr, max_level)
+
+
+@pytest.mark.parametrize("case", ["540x960 L2", "540x960 L2 N8",
+                                  "1080x1920 L3"])
+def test_lk_planes_kernel_at_the_paths_shapes(dev, case):
+    """K9 at the cells' analysis shape (540 x 960, 3 levels, one stream and
+    multicam's 8) on a real frame pair's grays, and at the legacy
+    stabilizer's 1080 x 1920 with 4 levels."""
+    if case.startswith("1080"):
+        prev, curr = _lk_pair(dev, 1080, 1920, 5, (4.6, -7.3))
+        _k9_against_plain(dev, prev, curr, 3)
+        return
+    prev, curr = _lk_pair(dev, 540, 960, 2, (6.4, -9.7))
+    if case.endswith("N8"):
+        prev = torch.stack([torch.roll(prev, 13 * k, dims=1)
+                            for k in range(8)])
+        curr = torch.stack([torch.roll(curr, 13 * k, dims=1)
+                            for k in range(8)])
+    _k9_against_plain(dev, prev, curr, 2)
+
+
+def test_lk_planes_kernel_refuses(dev):
+    """K9's wrapper refuses CPU grays, float64, non-contiguous grays,
+    grays of two shapes, empty ones and more than 6 levels, each without
+    a launch."""
+    from video_stab_tpu_torch.kernels import lk_planes as klp
+    prev, curr = _k9_grays(dev, 0, 40, 70, 3)
+    launches = klp.PLANES_LAUNCHES
+    for p, c, levels, match in (
+            (prev.cpu(), curr.cpu(), 2, "CUDA"),
+            (prev.double(), curr.double(), 2, "float32"),
+            (prev.t(), curr.t(), 2, "contiguous"),
+            (prev, curr[:, :69].contiguous(), 2, "one shape"),
+            (prev[:0], curr[:0], 2, "non-empty"),
+            (prev[None, None], curr[None, None], 2, "-d"),
+            (prev, curr, 6, "max_level")):
+        with pytest.raises(ValueError, match=match):
+            klp.lk_planes_cuda(p, c, levels)
+    assert klp.PLANES_LAUNCHES == launches
+
+
+def test_lk_track_same_with_k9_and_plain_planes(dev, monkeypatch):
+    """``lk_track`` at 540 x 960 with 200 GFTT corners: (points, status,
+    err) identical with K9's planes and with the plain planes (K6 both
+    times)."""
+    from video_stab_tpu_torch.kernels import lk_planes as klp
+    from video_stab_tpu_torch.ops import lk as tlk
+    from video_stab_tpu_torch.ops.features import good_features_to_track
+    prev, curr = _lk_pair(dev, 540, 960, 2, (6.4, -9.7))
+    pts, mask = good_features_to_track(prev, max_corners=200,
+                                       quality_level=0.01, min_distance=15.0)
+    assert int(mask.sum()) == 200
+    launches = klp.PLANES_LAUNCHES
+    got = tlk.lk_track(prev, curr, pts, mask, max_level=2)
+    assert klp.PLANES_LAUNCHES == launches + 3
+    monkeypatch.setattr(tlk, "lk_planes", tlk.lk_planes_plain)
+    want = tlk.lk_track(prev, curr, pts, mask, max_level=2)
+    assert klp.PLANES_LAUNCHES == launches + 3
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[1].sum()) > 150
+
+
+def test_chain_with_k9_matches_the_plain_planes(dev, monkeypatch):
+    """The chain cell's config and pool over 48 calls: the delivered
+    frames with K9 and with the plain planes on the card are identical,
+    and K9 runs 3 launches an LK call."""
+    import json
+    from pathlib import Path
+
+    from benchmark_torch.frames import make_pool
+    from benchmark_torch.systems.chain import System
+    from video_stab_tpu_torch.kernels import lk as klk
+    from video_stab_tpu_torch.kernels import lk_planes as klp
+    from video_stab_tpu_torch.ops import lk as tlk
+    root = Path(__file__).resolve().parent.parent
+    cfg = json.loads((root / "benchmark_torch" / "configs"
+                      / "chain_1080p.json").read_text())
+    seed = 2 ** 31 + 23
+    pool = make_pool(seed, cfg["pool_frames"], 1, cfg["height"],
+                     cfg["width"], dev).cpu().numpy()
+
+    def run():
+        before = (klp.PLANES_LAUNCHES, klk.LAUNCHES)
+        system = System(cfg, pool, seed, dev)
+        outs = [system.call(i) for i in range(48)]
+        system.close()
+        return outs, (klp.PLANES_LAUNCHES - before[0],
+                      klk.LAUNCHES - before[1])
+
+    got, (k9, k6) = run()
+    assert k6 >= 47 and k9 == 3 * k6, (k9, k6)
+    monkeypatch.setattr(tlk, "lk_planes", tlk.lk_planes_plain)
+    want, (k9, k6) = run()
+    assert k9 == 0 and k6 >= 47
+    assert [o is None for o in got] == [o is None for o in want]
+    assert sum(o is not None for o in got) >= 24
+    for a, b in zip(got, want):
+        if a is not None:
+            np.testing.assert_array_equal(a, b)
 
 
 # --- the smoothers and the resumed stream on the card ------------------------

@@ -26,7 +26,7 @@ from video_stab_tpu_torch import native
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("warp.cu", "features.cu", "enhance.cu", "traj.cu", "lk.cu",
-           "azc.cu")
+           "azc.cu", "lk_planes.cu")
 # --fmad=false: no multiply-add contraction anywhere, so every kernel's
 # float32 arithmetic is the same as its plain PyTorch version's.
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -73,6 +73,10 @@ _SIGNATURES = {
     "vs_interior_rect": (_P, _I, _I, _I, _P, _P),
     # frame, h, w, thresh, r, hw_bits, out, stream
     "vs_content_mask": (_P, _I, _I, _F, _I, ctypes.c_ulonglong, _P, _P),
+    # src_prev, src_curr, n, hs, ws, hl, wl, down, idx_h, w_h, k_h, idx_w,
+    # w_w, k_w, prev_out, curr_out, next_prev, next_curr, stream
+    "vs_lk_planes": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I,
+                     _P, _P, _P, _P, _P),
 }
 
 _lock = threading.Lock()

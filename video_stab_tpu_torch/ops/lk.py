@@ -17,11 +17,13 @@ fail are kept exactly:
 - points freeze once a step is within ``eps``; the ``lvl_ok`` min-eig test;
   the final ``err`` window; the ``inside`` test.
 
-``lk_track`` builds the full planes here: both pyramids, the Scharr
-derivatives of each prev level, and one bfloat16 rounding of each plane.
-The per-point ladder over them is ``kernels/lk.py:lk_levels``: on CUDA
-tensors one launch of K6 for every level, round and step, on CPU tensors
-its plain version.
+``lk_track`` builds the full planes with ``lk_planes``: both pyramids,
+the Scharr derivatives of each prev level, and one bfloat16 rounding of
+each plane; on CUDA tensors one launch of K9 a level
+(``kernels/lk_planes.py``), on CPU tensors its plain version,
+``lk_planes_plain``. The per-point ladder over them is
+``kernels/lk.py:lk_levels``: on CUDA tensors one launch of K6 for every
+level, round and step, on CPU tensors its plain version.
 
 JAX leaves a round's loop early once every point has converged; the plain
 version runs every round's full step budget with converged points frozen,
@@ -31,9 +33,10 @@ without reading the device's convergence flag on the host.
 ``global_translation_prior`` below.
 
 ``lk_planes`` and ``lk_track`` also take N streams at once, a leading
-axis on the grays (N, H, W) and on the points (N, P, ...): each filter of
-the pyramids and derivatives is then one launch for all N, and the ladder
-one K6 launch for all N * P points.
+axis on the grays (N, H, W) and on the points (N, P, ...): each K9 launch
+then covers all N (in the plain version each filter of the pyramids and
+derivatives is one launch for all N), and the ladder is one K6 launch for
+all N * P points.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from typing import Optional
 import torch
 
 from video_stab_tpu_torch.kernels.lk import lk_levels
+from video_stab_tpu_torch.kernels.lk_planes import lk_planes_cuda
 from video_stab_tpu_torch.ops.filters import scharr_derivs
 from video_stab_tpu_torch.ops.resize import build_pyramid
 
@@ -57,7 +61,23 @@ def lk_planes(prev_gray: torch.Tensor, curr_gray: torch.Tensor,
               ) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
     """The planes K6 reads, per level 0 .. max_level: (3, Hl, Wl) stacks
     [prev, d/dx, d/dy] and (Hl, Wl) current planes, rounded to bfloat16;
-    for (N, H, W) grays (N, 3, Hl, Wl) and (N, Hl, Wl)."""
+    for (N, H, W) grays (N, 3, Hl, Wl) and (N, Hl, Wl). CUDA grays launch
+    K9 (``max_level + 1`` launches) or raise; CPU grays take
+    ``lk_planes_plain``."""
+    if prev_gray.is_cuda:
+        return lk_planes_cuda(prev_gray.contiguous(), curr_gray.contiguous(),
+                              max_level)
+    if prev_gray.device.type != "cpu":
+        raise ValueError(f"lk_planes: unsupported device {prev_gray.device}")
+    return lk_planes_plain(prev_gray, curr_gray, max_level)
+
+
+def lk_planes_plain(prev_gray: torch.Tensor, curr_gray: torch.Tensor,
+                    max_level: int
+                    ) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
+    """Plain PyTorch version of K9 (any device): the pyramids by
+    ``pyr_down``, the Scharr pair of every prev level, one bfloat16
+    rounding of each plane."""
     prev_planes = []
     for prev_l in build_pyramid(prev_gray, max_level):
         ix, iy = scharr_derivs(prev_l)
