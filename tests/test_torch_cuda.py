@@ -1620,6 +1620,59 @@ def test_multistream_on_the_card_matches_cpu(dev, kw):
             assert k3 == (1 if t % p.redetect_interval == 0 else 0)
 
 
+def test_batched_drone_step_on_the_card_matches_cpu(dev):
+    """The batched drone step (``benchmark_torch/tests/
+    drone_hf_8x1080p_small.json``: 3 streams at 360x640, conditional
+    CLAHE, the prior, the HF chain, crop-and-zoom) on the card against
+    the CPU over 24 ticks of the cell's frames with the same draws: u8
+    frames within 1 on >= 99.9 % of pixels
+    (``test_torch_multistream_variants.py``'s bound), transforms within
+    1e-3 (K6 holds LK's positions to the plain ladder's within 1e-3 px);
+    each tick one K6 and one emit-warp launch and three K9 launches for
+    the 3 streams."""
+    import json
+    from pathlib import Path
+
+    from benchmark_torch.frames import make_pool
+    from video_stab_tpu_torch.core.params import ModeParams, StabilizerParams
+    from video_stab_tpu_torch.kernels import lk as klk
+    from video_stab_tpu_torch.kernels import lk_planes as kplanes
+    from video_stab_tpu_torch.kernels import warp as kwarp
+    from video_stab_tpu_torch.parallel import MultiStreamStabilizer
+    root = Path(__file__).resolve().parent.parent
+    cfg = json.loads((root / "benchmark_torch" / "tests"
+                      / "drone_hf_8x1080p_small.json").read_text())
+    p = StabilizerParams(**cfg["stabilizer"])
+    n, ticks = cfg["streams"], 24
+    pool = make_pool(2 ** 31 + 11, ticks, n, cfg["height"], cfg["width"],
+                     torch.device("cpu")).numpy()
+    outs, transforms, counts = [], [], []
+    for use_cuda in (False, True):
+        ms = MultiStreamStabilizer(p, n, mode=ModeParams(use_cuda=use_cuda),
+                                   ransac_draws=_stream_draws(
+                                       n, ticks, p.ransac_hypotheses, 2, 5))
+        got, tr = [], []
+        for batch in pool:
+            before = (klk.LAUNCHES, kwarp.LAUNCHES, kplanes.PLANES_LAUNCHES)
+            out = ms.stabilize_batch(batch)
+            after = (klk.LAUNCHES, kwarp.LAUNCHES, kplanes.PLANES_LAUNCHES)
+            if use_cuda and ms.last_metrics:
+                counts.append(tuple(a - b for a, b in zip(after, before)))
+            if ms.last_metrics:
+                tr.append(ms.last_metrics["transform"].cpu().numpy())
+            if out is not None:
+                got.append(out)
+        outs.append(np.stack(got))
+        transforms.append(np.stack(tr))
+    assert outs[0].shape == (ticks - p.effective_radius + 1, n,
+                             cfg["height"], cfg["width"], 3)
+    assert _within_one(outs[1], outs[0]) >= 0.999
+    np.testing.assert_allclose(transforms[1], transforms[0], atol=1e-3,
+                               rtol=0)
+    assert counts and all(c == (1, 1, p.lk_levels + 1) for c in counts), \
+        counts
+
+
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
 def test_detector_on_the_card_matches_the_cpu(dev, dtype, tol):
     """The CenterNet detector with the bundled weights (cuDNN on the card,

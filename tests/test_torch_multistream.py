@@ -10,8 +10,9 @@ readiness, per-stream transforms within 1e-3, emitted u8 frames within 1
 on >= 99.5 % of pixels. Also: stream i of the batch against the port's own
 single-stream ``Stabilizer(seed = seed + i)``, a JAX batched state carried
 into the port, the serving loop over the port's own frame server on
-loopback, the parameters ``check_supported_batched`` refuses, and the
-plain versions' calls per tick (each stage once for all N streams).
+loopback, the parameters ``check_supported_batched`` refuses and those it
+takes, and the plain versions' calls per tick (each stage once for all N
+streams).
 """
 
 import dataclasses
@@ -381,15 +382,11 @@ def test_each_stage_runs_once_per_tick_for_all_streams(batches,
 
 @pytest.mark.parametrize("field,value", [
     ("enable_virtual_canvas", True),
-    ("border_type", "reflect"),
     ("border_type", "fade"),
     ("border_size", 8),
-    ("crop_n_zoom", True),
     ("feature_detector", "orb"),
     ("feature_detector", "fast"),
     ("feature_detector", "brisk"),
-    ("drone_high_freq_mode", True),
-    ("motion_prediction", True),
     ("aux_rotation_deg", 3.0),
 ])
 def test_check_supported_batched_refuses(field, value):
@@ -399,6 +396,23 @@ def test_check_supported_batched_refuses(field, value):
     assert "ROADMAP queue 1 item 11b" in str(exc.value)
     with pytest.raises(NotImplementedError):
         MultiStreamStabilizer(p, 2, mode=CPU)
+
+
+@pytest.mark.parametrize("kw", [
+    {"border_type": "reflect"},
+    {"crop_n_zoom": True, "border_size": 8},
+    {"crop_n_zoom": True, "border_size": 30, "border_type": "reflect_101"},
+    {"crop_n_zoom": True, "border_size": 8, "border_type": "fade"},
+    {"drone_high_freq_mode": True},
+    {"motion_prediction": True},
+])
+def test_check_supported_batched_takes_the_drone_mode(kw):
+    """Upstream's drone mode and crop-and-zoom with every border type (the
+    border's size is the crop; its type is unused), and a border type
+    with no border, which pads nothing."""
+    p = StabilizerParams(**{**SMALL, **kw})
+    check_supported_batched(p)
+    MultiStreamStabilizer(p, 2, mode=CPU)
 
 
 def test_needs_a_card_unless_asked_for_the_cpu(monkeypatch):

@@ -5,7 +5,11 @@ tests/test_torch_stabilizer.py and the smoother, homography and deep
 tests hold to the JAX package): the same readiness, transforms within
 1e-5 (1e-4 for the homography model, whose batched ``eigh`` and
 ``matrix_exp`` sum in their own order) and frames within 1 on >= 99.9 %
-of pixels.
+of pixels. Upstream's drone mode (``configs/drone_hf.yaml``) at the small
+size, whole and a stage at a time: its analysis at 256 x 192 so that the
+``motion_prediction`` prior measures a shift (it needs >= 32 rows at
+analysis / 2**lk_levels), 32 corners so that every frame counts as starved
+and conditional CLAHE is selected from the fourth frame on.
 """
 
 import dataclasses
@@ -24,6 +28,15 @@ from test_torch_stabilizer import CPU, SMALL, _close_frames  # noqa: E402
 
 N, TICKS = 2, 12
 
+# configs/drone_hf.yaml's stabilizer block, at the small size.
+DRONE = {"drone_high_freq_mode": True, "motion_prediction": True,
+         "horizon_lock": True, "crop_n_zoom": True, "border_size": 8,
+         "border_type": "reflect_101", "smoothing_method": "gaussian",
+         "gaussian_sigma": 15.0, "min_distance": 10.0, "hf_shake_px": 0.8,
+         "hf_rot_lp_alpha": 0.1, "hf_dead_zone_threshold": 3.0,
+         "hf_freeze_duration": 30, "hf_motion_accumulator_decay": 0.85,
+         "analysis_width": 256, "analysis_height": 192}
+
 
 @pytest.mark.parametrize("kw", [
     {"smoothing_method": "gaussian"},
@@ -34,6 +47,12 @@ N, TICKS = 2, 12
     {"redetect_interval": 3, "min_distance": 10.0},
     {"use_roi": True},
     {"motion_model": "homography", "smoothing_method": "kalman"},
+    DRONE,
+    {"motion_prediction": True, "analysis_width": 256,
+     "analysis_height": 192},
+    {"crop_n_zoom": True, "border_size": 8},
+    {"drone_high_freq_mode": True, "enable_conditional_clahe": False},
+    {**DRONE, "horizon_lock": False},
 ])
 def test_batch_stream_equals_single_stream(jittered_clip, kw):
     frames, _ = jittered_clip

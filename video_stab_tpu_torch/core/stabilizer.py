@@ -33,8 +33,10 @@ its greedy selection (``ops/features.py``).
 tensor of the state with a leading N (``parallel/multistream.py``, the
 JAX package's vmapped serving step written out): each stage runs once a
 tick for all N streams, with the warm-up gate per stream on the device and
-one re-detect tick for the batch. ``check_supported_batched`` names the
-parameters they do not take yet.
+one re-detect tick for the batch; upstream's drone mode (conditional CLAHE,
+the HF chain, the ``motion_prediction`` prior, crop-and-zoom) runs there
+too, each stream's decisions device-side selects.
+``check_supported_batched`` names the parameters they do not take yet.
 """
 
 from __future__ import annotations
@@ -139,18 +141,16 @@ def check_supported_batched(params: StabilizerParams) -> None:
     todo = []
     if params.enable_virtual_canvas:
         todo.append("enable_virtual_canvas=True")
-    if params.border_type != "black":
-        todo.append(f"border_type={params.border_type}")
-    if params.border_size != 0:
-        todo.append(f"border_size={params.border_size}")
-    if params.crop_n_zoom:
-        todo.append("crop_n_zoom=True")
+    # crop_n_zoom crops the unpadded warp: the border's size is the crop,
+    # and its type is unused. Without it the output is padded.
+    if not params.crop_n_zoom:
+        if params.border_type == "fade":
+            todo.append("border_type=fade")
+        if params.border_pad > 0:
+            todo.append(f"border_size={params.border_size} (a padded "
+                        "output, without crop_n_zoom)")
     if params.feature_detector != "gftt":
         todo.append(f"feature_detector={params.feature_detector}")
-    if params.drone_high_freq_mode:
-        todo.append("drone_high_freq_mode=True")
-    if params.motion_prediction:
-        todo.append("motion_prediction=True")
     if params.aux_rotation_deg != 0.0:
         todo.append(f"aux_rotation_deg={params.aux_rotation_deg}")
     if todo:
@@ -262,19 +262,63 @@ def to_full_resolution(params: StabilizerParams, frame_shape,
                         rows[..., 1] * (1.0 / syf), rows[..., 2]], dim=-1)
 
 
+def _n_streams(t: torch.Tensor, one: int) -> int:
+    """Streams of a tensor whose one-stream shape has ``one`` dims: 1, or
+    N for N streams' (N, ...)."""
+    return t.shape[0] if t.dim() > one else 1
+
+
 def _lk_init_pts(params: StabilizerParams, state: StabilizerState,
                  gray: torch.Tensor) -> Optional[torch.Tensor]:
     """``motion_prediction``'s LK seed for the similarity model (the JAX
     package's homography branch tracks without it): the previous points
     shifted by the global translation between the two grays, measured at
-    analysis / 2**lk_levels and scaled back; None without the prior."""
+    analysis / 2**lk_levels and scaled back; None without the prior. N
+    streams' grays give each stream its own shift."""
     if not params.motion_prediction or params.motion_model == "homography":
         return None
-    sc = 2 ** params.lk_levels
-    hs, ws = params.analysis_height // sc, params.analysis_width // sc
-    g = global_translation_prior(resize_bilinear(state.prev_gray, hs, ws),
-                                 resize_bilinear(gray, hs, ws)) * sc
-    return state.prev_pts + g[None, :]
+    with telemetry.trace("vstab.prior"):
+        telemetry.count("prior_steps", _n_streams(gray, 2))
+        sc = 2 ** params.lk_levels
+        hs, ws = params.analysis_height // sc, params.analysis_width // sc
+        g = global_translation_prior(
+            resize_bilinear(state.prev_gray, hs, ws),
+            resize_bilinear(gray, hs, ws)) * sc
+        return state.prev_pts + g[..., None, :]
+
+
+def _conditional_clahe(params: StabilizerParams, state: StabilizerState,
+                       gray: torch.Tensor) -> torch.Tensor:
+    """Drone mode's conditional CLAHE: the analysis gray is enhanced after
+    > 2 consecutive starved frames. The counter lives on the device, so
+    CLAHE runs every frame and a select keeps or drops it, per stream for
+    N streams: no host read, at the cost of its ~40 small launches."""
+    if not (params.drone_high_freq_mode and params.enable_conditional_clahe):
+        return gray
+    with telemetry.trace("vstab.clahe"):
+        telemetry.count("clahe_runs", _n_streams(gray, 2))
+        starved = (state.starvation_counter > 2)[..., None, None]
+        return torch.where(starved, clahe(gray, clip_limit=2.0, tile_grid=8),
+                           gray)
+
+
+def _hf_step(params: StabilizerParams, state: StabilizerState,
+             raw: torch.Tensor):
+    """Drone mode's high-frequency vibration chain on the raw transform(s)
+    (a similarity-space heuristic, skipped by the homography model): (hf
+    state, transform), each stream's state its own for N streams."""
+    if not params.drone_high_freq_mode or params.motion_model == "homography":
+        return state.hf, raw
+    with telemetry.trace("vstab.hf"):
+        telemetry.count("hf_steps", _n_streams(raw, 1))
+        return hf_apply(
+            state.hf, raw,
+            dead_zone_threshold=params.hf_dead_zone_threshold,
+            freeze_duration=params.hf_freeze_duration,
+            accumulator_decay=params.hf_motion_accumulator_decay,
+            shake_px=params.hf_shake_px,
+            rot_lp_alpha=params.hf_rot_lp_alpha,
+            horizon_lock=params.horizon_lock)
 
 
 def stabilizer_analyze_step_fn(params: StabilizerParams,
@@ -294,35 +338,10 @@ def stabilizer_analyze_step_fn(params: StabilizerParams,
     check_supported(params)
     gray = _analysis_gray(params, frame_u8.float()) if analysis_gray is None \
         else analysis_gray
-
-    # Conditional CLAHE under feature starvation (drone mode): the analysis
-    # gray is enhanced after > 2 consecutive starved frames. The counter
-    # lives on the device, so CLAHE runs every frame and a select keeps or
-    # drops it: no host read, at the cost of its ~40 small launches.
-    if params.drone_high_freq_mode and params.enable_conditional_clahe:
-        with telemetry.trace("vstab.clahe"):
-            telemetry.count("clahe_runs")
-            gray = torch.where(state.starvation_counter > 2,
-                               clahe(gray, clip_limit=2.0, tile_grid=8), gray)
-
+    gray = _conditional_clahe(params, state, gray)
     raw, curr_pts, valid, inliers, est_ok = _estimate_motion(
         params, state, gray, frame_u8.shape[-3:], ransac_draws)
-
-    # Drone high-frequency vibration chain: a similarity-space heuristic,
-    # skipped by the homography model.
-    hf = state.hf
-    if params.drone_high_freq_mode and params.motion_model != "homography":
-        with telemetry.trace("vstab.hf"):
-            telemetry.count("hf_steps")
-            hf, raw = hf_apply(
-                hf, raw,
-                dead_zone_threshold=params.hf_dead_zone_threshold,
-                freeze_duration=params.hf_freeze_duration,
-                accumulator_decay=params.hf_motion_accumulator_decay,
-                shake_px=params.hf_shake_px,
-                rot_lp_alpha=params.hf_rot_lp_alpha,
-                horizon_lock=params.horizon_lock)
-
+    hf, raw = _hf_step(params, state, raw)
     tick = None if redetect_tick is None else int(redetect_tick)
     return _finish_analyze(params, state._replace(hf=hf), frame_u8, gray,
                            raw, curr_pts, valid, inliers, est_ok, tick,
@@ -658,6 +677,22 @@ def pad_frame(frame: torch.Tensor, b: int, border_type: str
     return frame.index_select(0, rows).index_select(1, cols)
 
 
+def _crop_zoom(params: StabilizerParams, warped: torch.Tensor
+               ) -> torch.Tensor:
+    """crop_n_zoom with ``border_size`` b > 0: b px cut off every side of
+    the warped (..., H, W, 3) u8 frame(s) and the rest resized bilinearly
+    back to (H, W), N streams' frames in one resample; otherwise
+    ``warped`` as it is."""
+    b = params.border_pad
+    if not params.crop_n_zoom or b == 0:
+        return warped
+    h, w = warped.shape[-3:-1]
+    with telemetry.trace("vstab.crop_zoom"):
+        telemetry.count("crop_zoom_resamples", _n_streams(warped, 3))
+        return saturate_u8(resize_bilinear(
+            warped[..., b:h - b, b:w - b, :], h, w))
+
+
 def _warp_bordered(params: StabilizerParams, state: StabilizerState,
                    frame_u8: torch.Tensor,
                    warp: Callable[[torch.Tensor], torch.Tensor]
@@ -673,15 +708,9 @@ def _warp_bordered(params: StabilizerParams, state: StabilizerState,
     package's warp quantizes its input), then updates the history at rate
     0.1 in the border from the warped frame."""
     b = params.border_pad
-    if b == 0:
-        return state, warp(frame_u8)
+    if b == 0 or params.crop_n_zoom:
+        return state, _crop_zoom(params, warp(frame_u8))
     h, w = frame_u8.shape[:2]
-    if params.crop_n_zoom:
-        warped = warp(frame_u8)
-        with telemetry.trace("vstab.crop_zoom"):
-            telemetry.count("crop_zoom_resamples")
-            return state, saturate_u8(resize_bilinear(
-                warped[b:h - b, b:w - b], h, w))
     if params.border_type != "fade":
         return state, warp(pad_frame(frame_u8, b, params.border_type))
     dev = frame_u8.device
@@ -778,13 +807,19 @@ def batched_analyze_step_fn(params: StabilizerParams, state: StabilizerState,
     draws. ``redetect_tick`` is the batch's one host counter (the JAX
     package's unbatched tick): every stream re-detects on the same
     ticks. A stream whose slot was just reset analyzes against a zero gray
-    with no valid point: its estimate is not ok and its transform zero."""
+    with no valid point: its estimate is not ok and its transform zero.
+    Drone mode's stages run once for the N streams, each stream's CLAHE
+    selected by its own starvation counter, its prior its own shift and
+    its HF chain its own state."""
     check_supported_batched(params)
-    gray = _analysis_gray(params, frames_u8.float())
+    gray = _conditional_clahe(params, state,
+                              _analysis_gray(params, frames_u8.float()))
     raw, curr_pts, valid, inliers, est_ok = _estimate_motion(
         params, state, gray, frames_u8.shape[-3:], ransac_draws)
-    return _finish_analyze(params, state, frames_u8, gray, raw, curr_pts,
-                           valid, inliers, est_ok, int(redetect_tick), None)
+    hf, raw = _hf_step(params, state, raw)
+    return _finish_analyze(params, state._replace(hf=hf), frames_u8, gray,
+                           raw, curr_pts, valid, inliers, est_ok,
+                           int(redetect_tick), None)
 
 
 def batched_emit_step_fn(params: StabilizerParams, state: StabilizerState
@@ -793,7 +828,8 @@ def batched_emit_step_fn(params: StabilizerParams, state: StabilizerState
     correction at its own emit cursor, then one warp launch (K1, or K2 for
     the homography model) that reads each stream's queued frame in place
     in the (N, Q, H, W, 3) ring at its slot, a device table: no frame is
-    gathered and no slot read on the host. Returns (N, H, W, 3) u8."""
+    gathered and no slot read on the host; with crop_n_zoom one crop and
+    resample of the N warped frames. Returns (N, H, W, 3) u8."""
     with telemetry.trace("vstab.emit"):
         check_supported_batched(params)
         state, e, has_transform, raw, diff = _emit_inputs(params, state)
@@ -812,6 +848,7 @@ def batched_emit_step_fn(params: StabilizerParams, state: StabilizerState
             out = warp_affine_u8_batched(ring, slots,
                                          similarity_matrix(dx, dy, da),
                                          border_mode=BORDER_CONSTANT)
+        out = _crop_zoom(params, out)
         return state._replace(
             emit_idx=e + 1,
             envelope_exceeded=state.envelope_exceeded

@@ -85,32 +85,42 @@ def clahe(img: torch.Tensor, clip_limit: float = 2.0, tile_grid: int = 8
     clipped histogram -> LUT, bilinear blend of the four surrounding tiles'
     LUTs. The image is padded (reflect-101, bottom and right) so that H and
     W divide the tile grid. Every step is a tensor op on ``img``'s device;
-    nothing is read back."""
-    h, w = img.shape
+    nothing is read back. N streams' (N, H, W) grays take the same ops
+    once for the batch: each stream's bins and LUT reads offset into its
+    own block of the histogram."""
+    *lead, h, w = img.shape
     ty = tx = tile_grid
     th = -(-h // ty)
     tw = -(-w // tx)
     ph, pw = th * ty, tw * tx
     x = img
     if (ph, pw) != (h, w):
-        x = F.pad(x[None, None], (0, pw - w, 0, ph - h), mode="reflect")[0, 0]
+        x = F.pad(x.unsqueeze(-3), (0, pw - w, 0, ph - h),
+                  mode="reflect").squeeze(-3)
     dev = img.device
     vals = torch.clamp(x, 0.0, 255.0).to(torch.int64)
+    n_tiles = ty * tx
+    if lead:
+        # Stream i's histogram and LUTs are block i of n_tiles * 256 bins.
+        streams = torch.arange(math.prod(lead), device=dev).reshape(
+            *lead, 1, 1)
+        vals = vals + streams * (n_tiles * 256)
     tile_row = torch.arange(ph, device=dev) // th
     tile_col = torch.arange(pw, device=dev) // tw
     tile_id = tile_row[:, None] * tx + tile_col[None, :]
     flat_bin = (tile_id * 256 + vals).reshape(-1)
-    hist = torch.zeros(ty * tx * 256, dtype=torch.float32, device=dev)
+    hist = torch.zeros(math.prod(lead) * n_tiles * 256, dtype=torch.float32,
+                       device=dev)
     hist = hist.index_add_(0, flat_bin, torch.ones_like(flat_bin,
                                                         dtype=torch.float32))
-    hist = hist.reshape(ty * tx, 256)
+    hist = hist.reshape(*lead, n_tiles, 256)
 
     # Integer clip and redistribution as cv::CLAHE's calcLut: the excess is
     # spread as batch = clipped // 256 to every bin and the residual to bins
     # 0, s, 2s, ... with s = max(256 // residual, 1).
     tile_area = th * tw
     clip = max(int(clip_limit * tile_area / 256.0), 1)
-    clipped = torch.clamp(hist - clip, min=0.0).sum(dim=1, keepdim=True)
+    clipped = torch.clamp(hist - clip, min=0.0).sum(dim=-1, keepdim=True)
     hist = torch.clamp(hist, max=float(clip))
     batch = torch.floor(clipped / 256.0)
     residual = clipped - batch * 256.0
@@ -120,7 +130,7 @@ def clahe(img: torch.Tensor, clip_limit: float = 2.0, tile_grid: int = 8
     res_inc = ((torch.remainder(bins, step) == 0)
                & (torch.floor(bins / step) < residual)).to(torch.float32)
     hist = hist + batch + res_inc
-    cdf = torch.cumsum(hist, dim=1)
+    cdf = torch.cumsum(hist, dim=-1)
     luts = torch.clamp(torch.round(cdf * (255.0 / tile_area)), 0.0, 255.0)
 
     # Bilinear blend (txf = x / tw - 0.5, weights before the index clamp).
@@ -141,7 +151,7 @@ def clahe(img: torch.Tensor, clip_limit: float = 2.0, tile_grid: int = 8
 
     out = ((look(y0, x0) * (1 - fx) + look(y0, x1) * fx) * (1 - fy)
            + (look(y1, x0) * (1 - fx) + look(y1, x1) * fx) * fy)
-    return out[:h, :w].to(img.dtype)
+    return out[..., :h, :w].to(img.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -125,25 +125,28 @@ def global_translation_prior(prev_small: torch.Tensor,
     The first maximum wins, as in ``jnp.argmax``. Confidence-gated: when
     the peak's z-score over the correlation surface (population std) is
     not above 4, the prior is 0. All on the device: nothing is read
-    back."""
-    h, w = prev_small.shape
+    back. N streams' (N, h, w) grays give (N, 2), one batched matmul and
+    each reduction once for the batch."""
+    *lead, h, w = prev_small.shape
     dev = prev_small.device
     patch = min(64, ((min(h, w) // 2) // 8) * 8)
     search = min(search, (h - patch) // 2 - 1, (w - patch) // 2 - 1)
     if search < 4 or patch < 16:
-        return torch.zeros(2, dtype=torch.float32, device=dev)
+        return torch.zeros((*lead, 2), dtype=torch.float32, device=dev)
     cy, cx = (h - patch) // 2, (w - patch) // 2
-    p = prev_small[cy:cy + patch, cx:cx + patch]
-    p = p - p.mean()
-    region = curr_small[cy - search:cy + patch + search,
+    p = prev_small[..., cy:cy + patch, cx:cx + patch]
+    p = p - p.mean(dim=(-2, -1), keepdim=True)
+    region = curr_small[..., cy - search:cy + patch + search,
                         cx - search:cx + patch + search]
-    region = region - region.mean()
+    region = region - region.mean(dim=(-2, -1), keepdim=True)
     n = 2 * search + 1
-    windows = region.unfold(0, patch, 1).unfold(1, patch, 1)  # (n, n, p, p)
-    corr = torch.matmul(windows.reshape(n * n, patch * patch),
-                        p.reshape(patch * patch))               # (n * n,)
-    idx = torch.argmax(corr)
-    z = (corr.max() - corr.mean()) / torch.clamp(corr.std(correction=0),
-                                                 min=1e-6)
-    shift = torch.stack([idx % n, idx // n]).to(torch.float32) - search
-    return torch.where(z > 4.0, shift, torch.zeros_like(shift))
+    d = region.dim()
+    windows = region.unfold(d - 2, patch, 1).unfold(d - 1, patch, 1).reshape(
+        *lead, n * n, patch * patch)                      # (..., n * n, p^2)
+    corr = torch.matmul(windows, p.reshape(*lead, patch * patch, 1))[..., 0]
+    idx = torch.argmax(corr, dim=-1)
+    z = (corr.amax(dim=-1) - corr.mean(dim=-1)) / torch.clamp(
+        corr.std(dim=-1, correction=0), min=1e-6)
+    shift = torch.stack([idx % n, idx // n], dim=-1).to(torch.float32) \
+        - search
+    return torch.where((z > 4.0)[..., None], shift, torch.zeros_like(shift))

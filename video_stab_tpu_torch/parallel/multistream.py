@@ -7,7 +7,10 @@ leading stream axis and shards it over a device mesh; here the stream axis
 is written out (``core/stabilizer.py`` ``batched_*_fn``): every stage of a
 tick runs once for all N streams, so the corner response (K3), the LK
 ladder (K6) and the emit warp (K1, or K2 for the homography model) are one
-launch a tick each, not N. One card holds all N streams: there is no mesh.
+launch a tick each, not N; in upstream's drone mode conditional CLAHE, the
+``motion_prediction`` prior, the HF chain and crop-and-zoom are each one
+set of ops a tick for the N streams. One card holds all N streams: there
+is no mesh.
 
 The wrapper reads nothing back from the device in steady state: per-stream
 readiness comes from host counters that mirror the device's, and the
@@ -204,12 +207,14 @@ class MultiStreamStabilizer:
         written in place with a fresh stream's values and its generator is
         re-seeded with ``params.seed + i``; the other streams are
         untouched. The fresh stream re-warms its own look-ahead while the
-        batch keeps stepping, and re-detects on the batch's ticks."""
+        batch keeps stepping, and re-detects on the batch's ticks. In drone
+        mode its HF state and starvation counter start afresh, and the
+        prior's inputs (its previous gray and points) are zero."""
         if self._state is None:
             return
-        # Without the bordered emit and the canvas no field but the frame
-        # ring depends on the frame size, so a 1 x 1 state is the fresh
-        # stream's.
+        # Without a padded emit and the canvas (which the batched step
+        # refuses) no field but the frame ring depends on the frame size,
+        # so a 1 x 1 state is the fresh stream's.
         fresh = stabilizer_state_init(
             dataclasses.replace(self.params, seed=self.params.seed + i),
             1, 1, self.device)
